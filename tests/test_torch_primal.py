@@ -1,0 +1,124 @@
+"""The port's primal solve end to end on the CPU: the goldens of
+tests/decks.py through Problem, the CLI, the device rule, carrying
+calibr8_tpu's parameters and state across, and the loud failure of
+decks outside this slice."""
+
+import copy
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+import yaml
+
+from calibr8_tpu.deck import load_deck as jax_load_deck
+from calibr8_tpu.problem import Problem as JaxProblem
+from calibr8_tpu_torch.convert import state_from_numpy
+from calibr8_tpu_torch.deck import load_deck
+from calibr8_tpu_torch.problem import Problem
+from tests.decks import BCS_2D, BCS_3D, CUBE, J2_MAT, NOTCH2D, PRIMAL_REGRESSIONS, make_deck
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _notch_gmres():
+    deck, gold, tol, _ = PRIMAL_REGRESSIONS["notch2D_small_J2"]
+    deck = copy.deepcopy(deck)
+    # 288 dofs: GMRES(200) reaches 1e-12 within its two cycles; exercises
+    # the ELL operator, block Gauss-Seidel and the restart loop
+    deck["linear algebra"] = {"method": "gmres", "tolerance": 1e-12, "maximum iterations": 400}
+    return deck, gold, tol
+
+
+GOLDENS = {
+    "cube_elastic": PRIMAL_REGRESSIONS["cube_elastic"][:3],
+    "notch2D_small_J2": PRIMAL_REGRESSIONS["notch2D_small_J2"][:3],
+    "notch2D_small_J2_gmres": _notch_gmres(),
+}
+
+
+@pytest.mark.parametrize("name", list(GOLDENS))
+def test_primal_golden(name):
+    deck, gold, tol = GOLDENS[name]
+    prob = Problem(load_deck(copy.deepcopy(deck)), device="cpu")
+    traj = prob.solve_primal()
+    assert abs(traj.J - gold) / abs(gold) <= tol, traj.J
+    if name.endswith("gmres"):
+        assert all(k > 0 for info in traj.newton_info for k in info["krylov_iters"])
+
+
+def test_cli_primal_prints_pass(tmp_path):
+    deck, gold, _ = GOLDENS["cube_elastic"]
+    deck = copy.deepcopy(deck)
+    deck["regression"] = {"QoI": gold, "relative error tol": 1e-6}
+    path = tmp_path / "cube_elastic.yaml"
+    path.write_text(yaml.safe_dump({"cube_elastic": deck}))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    r = subprocess.run(
+        [sys.executable, "-m", "calibr8_tpu_torch", "primal", str(path), "--device", "cpu"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "J: " in r.stdout
+    assert " PASS" in r.stdout
+
+
+def test_problem_defaults_to_the_card(monkeypatch):
+    """Without `device` the Problem runs on the card, and says so when
+    there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    deck = copy.deepcopy(GOLDENS["cube_elastic"][0])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Problem(load_deck(deck))
+
+
+def test_state_from_numpy_round_trip():
+    deck = make_deck(NOTCH2D, "small_J2", J2_MAT, BCS_2D(0.001), 1)
+    jp = JaxProblem(jax_load_deck(copy.deepcopy(deck)))
+    tp = Problem(load_deck(copy.deepcopy(deck)), device="cpu")
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(jp.disc.n_dofs)
+    xi = rng.standard_normal((jp.disc.n_elem, jp.assembler.nxi))
+    params, xt, xit = state_from_numpy(np.asarray(jp.params0), x, xi, device="cpu")
+    assert torch.equal(params, tp.params0)
+    assert xt.shape == (tp.disc.n_dofs,) and xit.shape == (tp.disc.n_elem, tp.model.nxi())
+    np.testing.assert_array_equal(xt.numpy(), x)
+    np.testing.assert_array_equal(xit.numpy(), xi)
+    with pytest.raises(ValueError):
+        state_from_numpy(np.zeros(3), device="cpu")
+
+
+def _unsupported(key):
+    deck = make_deck(CUBE, "small_J2", J2_MAT, BCS_3D(0.02), 1)
+    if key == "model":
+        deck["residuals"]["local residual"]["type"] = "hyper_J2"
+        deck["residuals"]["local residual"]["materials"] = {"body": {
+            "E": 1000.0, "nu": 0.25, "K": 100.0, "Y": 10.0, "S": 0.0, "D": 0.0, "A": 0.0, "n": 0.0}}
+    elif key == "multigrid":
+        deck["linear algebra"] = {"preconditioner": "multigrid"}
+    elif key == "amg":
+        deck["linear algebra"] = {"preconditioner": "amg"}
+    elif key == "jitted":
+        deck["residuals"]["global residual"]["solver"] = "jitted"
+    elif key == "mesh_file":
+        del deck["discretization"]["builtin mesh"]
+        deck["discretization"]["mesh file"] = "notch.smb"
+    elif key == "refinements":
+        deck["discretization"]["builtin mesh"] = {"type": "cube", "n": 2, "refinements": 1}
+    elif key == "plane_stress":
+        deck["residuals"]["global residual"]["type"] = "mechanics_plane_stress"
+    elif key == "displacement_only":
+        deck["residuals"]["global residual"]["mixed formulation"] = False
+    elif key == "qoi":
+        deck["quantity of interest"] = {"type": "average stress"}
+    return deck
+
+
+@pytest.mark.parametrize("key", ["model", "multigrid", "amg", "jitted", "mesh_file", "refinements",
+                                 "plane_stress", "displacement_only", "qoi"])
+def test_decks_outside_the_slice_fail_loudly(key):
+    with pytest.raises(NotImplementedError):
+        Problem(load_deck(_unsupported(key)), device="cpu")
