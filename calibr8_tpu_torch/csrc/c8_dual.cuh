@@ -10,8 +10,9 @@
 // also builds with a host C++ compiler for checking without a card.
 //
 // Tangent rules follow JAX's, which the reference port was checked
-// against: sqrt' = g * (0.5 / sqrt(x)); (a/b)' = a'/b - a b'/b^2;
-// max0(f) = max(f, 0) gives each side half the tangent at a tie.
+// against: sqrt' = g * (0.5 / sqrt(x)); exp' = g * exp(x);
+// (a/b)' = a'/b - a b'/b^2; max0(f) = max(f, 0) and maxc(f, c) give each
+// side half the tangent at a tie.
 #pragma once
 
 #include <cmath>
@@ -155,6 +156,34 @@ C8_HD Dual<T, N> c8_sqrt(const Dual<T, N>& a) {
   const T s = T(0.5) / r.v;
 #pragma unroll
   for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * s;
+  return r;
+}
+
+C8_HD float c8_exp(float x) { return expf(x); }
+C8_HD double c8_exp(double x) { return exp(x); }
+
+template <typename T, int N>
+C8_HD Dual<T, N> c8_exp(const Dual<T, N>& a) {
+  Dual<T, N> r;
+  r.v = c8_exp(a.v);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * r.v;
+  return r;
+}
+
+// max(f, c) for a constant c (jnp.maximum(f, c)): at a tie f keeps half
+// its tangent; a NaN f stays NaN, as XLA's max propagates it
+template <typename T>
+C8_HD T maxc(T f, T c) { return f < c ? c : f; }
+
+template <typename T, int N>
+C8_HD Dual<T, N> maxc(const Dual<T, N>& f, T c) {
+  if (f.v < c) return Dual<T, N>(c);
+  Dual<T, N> r = f;
+  if (f.v == c) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) r.d[k] = r.d[k] * T(0.5);
+  }
   return r;
 }
 

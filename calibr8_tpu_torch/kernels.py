@@ -26,8 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_assembly", "ebe_matvec", "ell_spmv")
-HEADERS = ("c8_dual.cuh", "c8_element.cuh")
+SOURCES = ("fused_assembly", "implicit_assembly", "ebe_matvec", "ell_spmv")
+HEADERS = ("c8_dual.cuh", "c8_element.cuh", "c8_hill.cuh", "c8_implicit.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",

@@ -4,11 +4,15 @@ The counterparts of calibr8_tpu's hand-batched twins (models/batched.py
 there): every array is (..., E) with the element axis last, small tensor
 algebra is written out over the leading axes.  They form the body of the
 fused assembly's plain version (fem/fused_assembly.py), and the CUDA
-kernel's model bodies (csrc/c8_element.cuh) follow them line by line, so
+kernels' model bodies (csrc/c8_element.cuh for the analytic twins,
+csrc/c8_hill.cuh for the implicit ones) follow them line by line, so
 the two agree to rounding.
 
-Each twin takes grad_u (d, d, E) directly (calibr8_tpu passes a
-Kinematics whose grad_u_prev these two models never read).  Tangent
+Analytic twins (elastic, small_J2) solve the local state in closed form;
+implicit twins (the small-strain Hill family) run implicit_newton, and
+the assembly condenses dxi/dgu through their residual.  Each twin takes
+grad_u (d, d, E) directly (calibr8_tpu passes a Kinematics whose
+grad_u_prev none of these models reads).  Tangent
 rules follow JAX's, which the plain version reproduces under
 torch.func.jvp: torch.where takes the tangent of the selected branch,
 torch.maximum splits the tangent evenly at a tie, and t_norm adds 1e-30
@@ -19,6 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from calibr8_tpu_torch.utils.smallsolve import gauss_solve_T
 
 SQRT_23 = float(np.sqrt(2.0 / 3.0))
 SQRT_32 = float(np.sqrt(3.0 / 2.0))
@@ -88,6 +94,8 @@ class BatchedSmallJ2:
     (6, E) = [E, nu, K, Y, cte, delta_T]."""
 
     name = "small_J2"
+    analytic_solve = True
+    plane_stress = False
 
     def __init__(self, model):
         self.model = model
@@ -144,6 +152,8 @@ class BatchedElastic:
     (4, E) = [E, nu, cte, delta_T]."""
 
     name = "elastic"
+    analytic_solve = True
+    plane_stress = False
 
     def __init__(self, model):
         self.model = model
@@ -174,10 +184,298 @@ class BatchedElastic:
         return parT[0] / (3.0 * (1.0 - 2.0 * parT[1]))
 
 
-BATCHED_MODELS = {"small_J2": BatchedSmallJ2, "elastic": BatchedElastic}
+def t_add_diag(a, s):
+    return t_sub_diag(a, -s)
 
-# the CUDA kernel's model index (csrc/fused_assembly.cu c8_fused_assembly)
-KERNEL_MODEL_ID = {"elastic": 0, "small_J2": 1}
+
+def t_hill_from_ratios(R00, R11, R22, R01, R02, R12):
+    """(F, G, H, L, M, N) of Hill's function from the six yield-stress
+    ratios; r**-2 is written 1 / (r * r), as JAX lowers it."""
+
+    def inv2(r):
+        return 1.0 / (r * r)
+
+    F = 0.5 * (inv2(R11) + inv2(R22) - inv2(R00))
+    G = 0.5 * (inv2(R22) + inv2(R00) - inv2(R11))
+    H = 0.5 * (inv2(R00) + inv2(R11) - inv2(R22))
+    L = 1.5 * inv2(R12)
+    M = 1.5 * inv2(R02)
+    N = 1.5 * inv2(R01)
+    return F, G, H, L, M, N
+
+
+def t_hill_params(parT, idx):
+    """(F, G, H, L, M, N) from the six ratios at parT[idx:idx+6]."""
+    return t_hill_from_ratios(*(parT[idx + k] for k in range(6)))
+
+
+def t_hill_params_2d(parT, idx):
+    """The plane variants carry 4 ratios (R00, R11, R22, R01); R02 =
+    R12 = 1 (small_hill_plane_*.cpp)."""
+    R00, R11, R22, R01 = (parT[idx + k] for k in range(4))
+    one = torch.ones_like(R00)
+    return t_hill_from_ratios(R00, R11, R22, R01, one, one)
+
+
+def t_hill_value(s, hp, eps=1e-30):
+    F, G, H, L, M, N = hp
+    v2 = (
+        F * (s[1, 1] - s[2, 2]) ** 2
+        + G * (s[2, 2] - s[0, 0]) ** 2
+        + H * (s[0, 0] - s[1, 1]) ** 2
+        + 2.0 * (L * s[1, 2] ** 2 + M * s[0, 2] ** 2 + N * s[0, 1] ** 2)
+    )
+    return torch.sqrt(v2 + eps)
+
+
+def t_hill_normal(s, hp, hval, eps=1e-30):
+    F, G, H, L, M, N = hp
+    n00 = (G + H) * s[0, 0] - H * s[1, 1] - G * s[2, 2]
+    n11 = (F + H) * s[1, 1] - H * s[0, 0] - F * s[2, 2]
+    n22 = (G + F) * s[2, 2] - G * s[0, 0] - F * s[1, 1]
+    n01 = N * s[0, 1]
+    n02 = M * s[0, 2]
+    n12 = L * s[1, 2]
+    n = torch.stack(
+        [torch.stack([n00, n01, n02]), torch.stack([n01, n11, n12]), torch.stack([n02, n12, n22])]
+    )
+    return n / torch.maximum(hval, torch.full_like(hval, eps))
+
+
+def t_embed3(c2, zz=None):
+    """(2, 2, E) -> (3, 3, E) with zero off-plane couplings and zz (zero
+    when None) in the corner."""
+    z = torch.zeros_like(c2[0, 0])
+    return torch.stack(
+        [
+            torch.stack([c2[0, 0], c2[0, 1], z]),
+            torch.stack([c2[1, 0], c2[1, 1], z]),
+            torch.stack([z, z, z if zz is None else zz]),
+        ]
+    )
+
+
+def t_in_plane(a3):
+    """The in-plane 2x2 block of a (3, 3, E) tensor."""
+    return torch.stack([torch.stack([a3[0, 0], a3[0, 1]]), torch.stack([a3[1, 0], a3[1, 1]])])
+
+
+class _ImplicitTwin:
+    """Shared pieces of the implicit-mode twins: the local state is found
+    by implicit_newton, the fused assembly condenses dxi/dgu implicitly."""
+
+    analytic_solve = False
+    plane_stress = False
+    newton_iters = 16
+
+    def __init__(self, model):
+        self.model = model
+        self.dim = model.dim
+        self.nc = 3 if self.dim == 2 else 6
+        self.nxi = model.nxi()
+        self.abs_tol = model.abs_tol
+
+    def _mu(self, parT):
+        return parT[0] / (2.0 * (1.0 + parT[1]))
+
+    # the mixed u/p stress measures (the plane-stress twin overrides cauchy)
+    def dev_cauchy(self, xiT, gu, parT):
+        mu = self._mu(parT)
+        ps = t_voigt_to_sym(xiT[: self.nc], self.dim)
+        return 2.0 * mu * (t_dev3(t_sym(gu)) - ps)
+
+    def cauchy(self, xiT, gu, parT, pT):
+        return t_sub_diag(self.dev_cauchy(xiT, gu, parT), pT)
+
+    def hydro_cauchy(self, xiT, gu, parT):
+        Em, nu = parT[0], parT[1]
+        kappa = Em / (3.0 * (1.0 - 2.0 * nu))
+        return kappa * t_trace(t_sym(gu))
+
+    def pressure_scale_factor(self, parT):
+        return parT[0] / (3.0 * (1.0 - 2.0 * parT[1]))
+
+    def first_guess(self, xipT, gu, parT):
+        return xipT
+
+    def pathfn(self, xiT, xipT, gu, parT):
+        f, _ = self._f_and_n(xiT, gu, parT)
+        return (f >= -self.abs_tol).to(torch.int32)
+
+    def local_solve(self, xipT, gu, parT):
+        return implicit_newton(self, xipT, gu, parT)
+
+
+class BatchedSmallHill(_ImplicitTwin):
+    """Twin of SmallHill: xi (7, E) = [pstrain voigt (6), alpha]; params
+    (11, E) = [E, nu, Y, R00, R11, R22, R01, R02, R12, S, D]."""
+
+    name = "small_hill"
+
+    def _voce(self, alpha, parT):
+        Y, S, D = parT[2], parT[9], parT[10]
+        return Y + S * (1.0 - torch.exp(-D * alpha))
+
+    def _f_and_n(self, xiT, gu, parT):
+        mu = self._mu(parT)
+        alpha = xiT[self.nc]
+        hp = t_hill_params(parT, 3)
+        s = self.dev_cauchy(xiT, gu, parT)
+        hval = t_hill_value(s, hp)
+        f = (hval - self._voce(alpha, parT)) / mu
+        return f, t_hill_normal(s, hp, hval)
+
+    def residual(self, xiT, xipT, gu, parT, path):
+        """Branchwise C (small_hill.cpp); the branches blend as w a +
+        (1 - w) b with w = (path == 1), as calibr8_tpu writes them."""
+        ps = t_voigt_to_sym(xiT[: self.nc], 3)
+        alpha = xiT[self.nc]
+        ps_old = t_voigt_to_sym(xipT[: self.nc], 3)
+        alpha_old = xipT[self.nc]
+        f, n = self._f_and_n(xiT, gu, parT)
+        dgam = alpha - alpha_old
+        R_p = ps - ps_old - dgam * n
+        R_e = ps - ps_old
+        w = (path == 1).to(xiT.dtype)
+        r22_p = t_trace(ps)  # plastic zz row: incompressibility (small_hill.cpp:240)
+        rows = [
+            w * R_p[0, 0] + (1.0 - w) * R_e[0, 0],
+            w * R_p[1, 1] + (1.0 - w) * R_e[1, 1],
+            w * r22_p + (1.0 - w) * R_e[2, 2],
+            w * R_p[0, 1] + (1.0 - w) * R_e[0, 1],
+            w * R_p[0, 2] + (1.0 - w) * R_e[0, 2],
+            w * R_p[1, 2] + (1.0 - w) * R_e[1, 2],
+            w * f + (1.0 - w) * (alpha - alpha_old),
+        ]
+        return torch.stack(rows)
+
+
+class _SmallHill2D(_ImplicitTwin):
+    """The two plane variants: params (9, E) = [E, nu, Y, S, D, R00, R11,
+    R22, R01]; xi (4, E) = [pstrain voigt (3), alpha]."""
+
+    def _voce(self, alpha, parT):
+        Y, S, D = parT[2], parT[3], parT[4]
+        return Y + S * (1.0 - torch.exp(-D * alpha))
+
+    def _f_and_n(self, xiT, gu, parT):
+        mu = self._mu(parT)
+        alpha = xiT[self.nc]
+        s3 = self._s3(xiT, gu, parT)
+        hp = t_hill_params_2d(parT, 5)
+        hval = t_hill_value(s3, hp)
+        f = (hval - self._voce(alpha, parT)) / mu
+        return f, t_in_plane(t_hill_normal(s3, hp, hval))
+
+    def residual(self, xiT, xipT, gu, parT, path):
+        ps = t_voigt_to_sym(xiT[: self.nc], 2)
+        alpha = xiT[self.nc]
+        ps_old = t_voigt_to_sym(xipT[: self.nc], 2)
+        alpha_old = xipT[self.nc]
+        f, n = self._f_and_n(xiT, gu, parT)
+        dgam = alpha - alpha_old
+        w = (path == 1).to(xiT.dtype)
+        R_p = ps - ps_old - (w * dgam) * n
+        R_a = w * f + (1.0 - w) * (alpha - alpha_old)
+        return torch.cat([t_sym_to_voigt(R_p, 2), R_a[None, :]])
+
+
+class BatchedSmallHillPlaneStrain(_SmallHill2D):
+    """Twin of SmallHillPlaneStrain (mixed u/p): the in-plane deviator is
+    embedded in 3D with s_zz = 2 mu (-tr(eps)/3 + tr(pstrain))."""
+
+    name = "small_hill_plane_strain"
+
+    def _s3(self, xiT, gu, parT):
+        mu = self._mu(parT)
+        ps = t_voigt_to_sym(xiT[: self.nc], 2)
+        s2 = self.dev_cauchy(xiT, gu, parT)
+        s_zz = 2.0 * mu * (-t_trace(t_sym(gu)) / 3.0 + t_trace(ps))
+        return t_embed3(s2, s_zz)
+
+
+class BatchedSmallHillPlaneStress(_SmallHill2D):
+    """Twin of SmallHillPlaneStress (displacement only, under
+    'mechanics_plane_stress'): sigma_zz = 0 eliminated through eps_zz,
+    Hill yield on the 3D embedding of the in-plane Cauchy stress."""
+
+    name = "small_hill_plane_stress"
+    plane_stress = True
+
+    def cauchy(self, xiT, gu, parT, pT=None):
+        Em, nu = parT[0], parT[1]
+        lam = Em * nu / ((1.0 + nu) * (1.0 - 2.0 * nu))
+        mu = self._mu(parT)
+        ps = t_voigt_to_sym(xiT[: self.nc], 2)
+        eps = t_sym(gu)
+        eps_zz = -(lam * t_trace(eps) + 2.0 * mu * t_trace(ps)) / (lam + 2.0 * mu)
+        return t_add_diag(2.0 * mu * (eps - ps), lam * (t_trace(eps) + eps_zz))
+
+    def _s3(self, xiT, gu, parT):
+        return t_embed3(self.cauchy(xiT, gu, parT))
+
+
+def implicit_newton(bm, xipT, gu, parT):
+    """The fixed-iteration local Newton of the implicit twins, per lane
+    (calibr8_tpu models/batched.py:561-671, without its precompute,
+    frozen-path and line-search options, which these twins do not use).
+    Each iteration takes the branch from the current xi, marks a lane
+    done once ||C|| < abs_tol (before its update), and adds the step
+    times (1 - done) * all(isfinite(dxi)); the loop ends after
+    newton_iters iterations or when every lane is done.  Returns (xiT,
+    path, failed), path and failed (E,) int32, failed where ||C(xi)|| >=
+    max(10 abs_tol, 1e-30) at the end."""
+    nxi = bm.nxi
+    xi = bm.first_guess(xipT, gu, parT)
+    dtype, E = xi.dtype, xi.shape[-1]
+    done = torch.zeros(E, dtype=torch.int32, device=xi.device)
+    for _ in range(bm.newton_iters):
+        if bool(done.min() >= 1):
+            break
+        path = bm.pathfn(xi, xipT, gu, parT)
+        R, cols = jvp_columns(lambda z: bm.residual(z, xipT, gu, parT, path), xi)
+        rnorm = torch.sqrt(usum(R * R, 0))
+        done = torch.maximum(done, (rnorm < bm.abs_tol).to(torch.int32))
+        J = cols.permute(1, 0, 2)  # J[i, k] = dC_i / dxi_k
+        dxi = gauss_solve_T(J, -R[:, None, :])[:, 0, :]
+        fin = torch.isfinite(dxi).to(dtype)
+        ok = fin[0]
+        for k in range(1, nxi):
+            ok = ok * fin[k]
+        gate = (1 - done).to(dtype) * ok
+        xi = xi + gate * dxi
+    path = bm.pathfn(xi, xipT, gu, parT)
+    Rf = bm.residual(xi, xipT, gu, parT, path)
+    rnorm = torch.sqrt(usum(Rf * Rf, 0))
+    failed = (rnorm >= max(bm.abs_tol * 10.0, 1e-30)).to(torch.int32)
+    return xi, path, failed
+
+
+def jvp_columns(fn, v):
+    """(fn(v), cols) with cols[k] = the tangent of fn along the unit seed
+    k of v's first axis: the counterpart of jax.linearize followed by one
+    call per seed.  v (n, E); cols (n, m, E) for fn(v) (m, E)."""
+    n = v.shape[0]
+    seeds = torch.eye(n, dtype=v.dtype, device=v.device)[:, :, None].expand(n, n, v.shape[-1])
+    # the primal output does not depend on the seed: one copy comes back
+    return torch.func.vmap(lambda t: torch.func.jvp(fn, (v,), (t,)), out_dims=(None, 0))(seeds)
+
+
+BATCHED_MODELS = {
+    "small_J2": BatchedSmallJ2,
+    "elastic": BatchedElastic,
+    "small_hill": BatchedSmallHill,
+    "small_hill_plane_strain": BatchedSmallHillPlaneStrain,
+    "small_hill_plane_stress": BatchedSmallHillPlaneStress,
+}
+
+# the CUDA kernels' model index (csrc/fused_assembly.cu c8_fused_assembly
+# for the analytic twins, csrc/implicit_assembly.cu c8_implicit_assembly
+# for the implicit ones)
+KERNEL_MODEL_ID = {
+    "elastic": 0, "small_J2": 1,
+    "small_hill": 0, "small_hill_plane_strain": 1, "small_hill_plane_stress": 2,
+}
 
 
 def get_batched_model(model):

@@ -69,12 +69,9 @@ class Problem:
         lr = spec.local_residual
 
         gr_type = gr.get("type", "mechanics")
-        if gr_type != "mechanics":
+        if gr_type not in ("mechanics", "mechanics_plane_stress"):
             raise NotImplementedError(f"global residual type {gr_type!r} is not ported yet")
-        if not gr.get("mixed formulation", True):
-            raise NotImplementedError(
-                "the displacement-only formulation (fused-assembly mode 1c) is not ported yet"
-            )
+        plane_stress = gr_type == "mechanics_plane_stress"
         if gr.get("solver") == "jitted":
             raise NotImplementedError("'solver: jitted' (solve/jit_newton.py) is not ported yet")
         la = spec.linear_algebra
@@ -90,8 +87,10 @@ class Problem:
         self.model.abs_tol = float(lr.get("nonlinear absolute tol", 1e-12))
         self.mech_spec = MechanicsSpec(
             dim=dim,
-            mixed=True,
+            mixed=(not plane_stress) and bool(gr.get("mixed formulation", True)),
             stab_multiplier=float(gr.get("stabilization multiplier", 1.0)),
+            plane_stress=plane_stress,
+            thickness=float(gr.get("thickness", 1.0)),
         )
         self.disc = Disc(self.mesh, self.mech_spec, self.device, dtype)
         self.mesh = self.disc.mesh

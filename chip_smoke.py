@@ -6,28 +6,34 @@
 Phases, in order; any failure exits non-zero without the result lines:
 
  1. device: the card's name and power limit (nvidia-smi), the torch and
-    CUDA versions, and the build of the three CUDA kernels from
+    CUDA versions, and the build of the four CUDA kernels from
     calibr8_tpu_torch/csrc with nvcc (one process per source, in
-    parallel).
+    parallel), with ptxas's register and spill report.
  2. each kernel against its plain PyTorch version, in float32 and
-    float64, at the shapes of the full-width problem (cube n=32,
-    small_J2, mixed u/p: 196,608 elements, 143,748 dofs) in a plastic
-    state: max error relative to max|plain|, the kernel's time per call
-    (CUDA events around back-to-back calls), the plain version's, a
-    one-call PyTorch yardstick where one exists, and the least time the
-    card could take (bound).
- 3. the notch2D_small_J2 and cube_elastic goldens (tests/decks.py) on the
-    card in float64, and the notch deck once more through GMRES on the
-    ELL operator.
- 4. the full-width primal solve (the bench deck: cube n=32, small_J2,
-    mixed u/p, 2 load steps, float64, GMRES + block Gauss-Seidel)
-    through Problem(...).solve_primal(), twice: with the assembled ELL
-    matrix as the Krylov operator (the default) and with the matrix-free
-    EBE operator (LinearCfg.operator = "ebe").  Each run's launch counts
-    are set to 0 just before it and read just after; J is held to
-    calibr8_tpu's value at rel 1e-6 in both.
- 5. one JSON line listing every ported kernel (launches: the sum of the
-    two runs of phase 4), the card's name and power limit, and the `ok`
+    float64, at the shapes of the full-width problems, in states with
+    plastic and elastic elements: the slice-1 kernels at cube n=32,
+    small_J2, mixed u/p (196,608 elements, 143,748 dofs); the implicit
+    assembly at cube n=32 small_hill (mixed u/p) and at notch2D h=0.004
+    small_hill_plane_stress (displacement only), with the EBE and ELL
+    kernels held once more at the latter's shapes (nde = 6, ndpn = 2).
+    Each record: max error relative to max|plain|, the kernel's time per
+    call (CUDA events around back-to-back calls), the plain version's, a
+    one-call PyTorch yardstick where one exists, the least time the card
+    could take (bound), and for the implicit kernel the histogram of
+    local Newton iterations.
+ 3. the goldens of tests/decks.py on the card in float64 (cube_elastic,
+    notch2D_small_J2 and the small-strain Hill family's three), and the
+    notch deck once more through GMRES on the ELL operator.
+ 4. the full-width primal solves (float64, GMRES + block Gauss-Seidel)
+    through Problem(...).solve_primal(): the bench deck (cube n=32,
+    small_J2) with the assembled ELL matrix as the Krylov operator and
+    once more, for 1 load step, with the matrix-free EBE operator; cube
+    n=32 small_hill (mixed u/p, 2 load steps); notch2D h=0.004
+    small_hill_plane_stress ('mechanics_plane_stress', 2 load steps).
+    Each run's launch counts are set to 0 just before it and read just
+    after; J is held at rel 1e-6 to its reference.
+ 5. one JSON line listing every ported kernel (launches: the sum over
+    the runs of phase 4), the card's name and power limit, and the `ok`
     line last.
 
 The script imports nothing of JAX or of calibr8_tpu.  Kernel builds go to
@@ -60,6 +66,15 @@ DEVICE = "cuda"
 # step contributions were 9.090906938095302e-04 and
 # 1.0606065519543038e-03.
 J_REF_N32 = 1.96969724576383405e-03
+J_REF_N32_STEP1 = 9.090906938095302e-04
+
+# J of the two full-width Hill decks (hill_deck(32), plane_stress_deck(0.004)
+# below) from calibr8_tpu (JAX 0.9.0) on the 8-core CPU of the machine
+# with the card: chip_reference.py.  Steps 9.255407500138226e-04 and
+# 9.446702154425757e-04 (413 s); 2.13479613797512e-03 and
+# 4.944628172944518e-03 (832 s).
+J_REF_HILL_N32 = 1.8702109654563982e-03
+J_REF_PLANE_STRESS_H004 = 7.079424310919638e-03
 
 LR_TOL = {
     "nonlinear max iters": 500,
@@ -68,13 +83,13 @@ LR_TOL = {
 }
 
 
-def _deck(mesh, model, materials, bcs, num_steps):
+def _deck(mesh, model, materials, bcs, num_steps, gtype="mechanics"):
     """tests/decks.py make_deck"""
     return {
         "discretization": {"builtin mesh": mesh, "num steps": num_steps, "step size": 1.0},
         "residuals": {
             "global residual": {
-                "type": "mechanics",
+                "type": gtype,
                 "nonlinear max iters": 40,
                 "nonlinear absolute tol": 1e-8,
                 "nonlinear relative tol": 1e-8,
@@ -84,6 +99,55 @@ def _deck(mesh, model, materials, bcs, num_steps):
         "dirichlet bcs": bcs,
         "quantity of interest": {"type": "average displacement"},
     }
+
+
+UNIT_R = {"R00": 1.0, "R11": 1.0, "R22": 1.0, "R01": 1.0, "R02": 1.0, "R12": 1.0}
+VOCE_MAT = {"E": 1000.0, "nu": 0.25, "Y": 2.0, "S": 10.0, "D": 2.0}
+HILL2D = {"E": 1000.0, "nu": 0.25, "Y": 10.0, "S": 5.0, "D": 2.0,
+          "R00": 1.0, "R11": 1.1, "R22": 0.95, "R01": 1.05}
+
+
+def bcs_3d(pull):
+    return {"expression": {
+        "bc 1": [0, 0, "xmin", "0.0"],
+        "bc 2": [0, 1, "ymin", "0.0"],
+        "bc 3": [0, 2, "zmin", "0.0"],
+        "bc 4": [0, 1, "ymax", f"{pull} * t"],
+    }}
+
+
+def bcs_2d(pull):
+    return {"expression": {
+        "bc 1": [0, 0, "xmin", "0.0"],
+        "bc 2": [0, 1, "ymin", "0.0"],
+        "bc 3": [0, 1, "ymax", f"{pull} * t"],
+    }}
+
+
+def hill_deck(n: int) -> dict:
+    """The bench deck (bench.py:106-147) with small_hill: the twin cases'
+    Voce constants with HILL2D's ratios and R02 = R12 = 1
+    (calibr8_tpu/models/twin_cases.py:15-16)."""
+    from calibr8_tpu_torch.profile_primal import bench_deck
+
+    deck = bench_deck(n)
+    lr = deck["residuals"]["local residual"]
+    lr["type"] = "small_hill"
+    lr["materials"] = {"body": {**HILL2D, "R02": 1.0, "R12": 1.0}}
+    return deck
+
+
+def plane_stress_deck(h: float) -> dict:
+    """The small_hill_plane_stress twin case (calibr8_tpu/models/
+    twin_cases.py:123-130, case_deck) on notch2D of size h, 2 load steps.
+    At h = 0.004 GMRES with block Gauss-Seidel leaves a relative residual
+    of 0.54 after the default 200 iterations, and calibr8_tpu's Newton
+    (like the port's) stops on it; the deck allows 1000 (five restart
+    cycles of 200)."""
+    deck = _deck({"type": "notch2D", "h": h}, "small_hill_plane_stress", HILL2D, bcs_2d(0.01), 2,
+                 gtype="mechanics_plane_stress")
+    deck["linear algebra"] = {"method": "gmres", "tolerance": 1e-6, "maximum iterations": 1000}
+    return deck
 
 
 # name -> (deck, golden QoI, rel tol)   (tests/decks.py PRIMAL_REGRESSIONS)
@@ -114,12 +178,30 @@ GOLDENS = {
         ),
         6.51333502442964264e-03, 1e-8,
     ),
+    "notch2D_small_J2_plane_strain": (
+        _deck({"type": "notch2D", "h": 0.12}, "small_hill_plane_strain",
+              {**VOCE_MAT, "R00": 1.0, "R11": 1.0, "R22": 1.0, "R01": 1.0}, bcs_2d(0.005), 4),
+        6.54378838333382e-03, 1e-8,
+    ),
+    "notch2D_small_J2_plane_stress": (
+        _deck({"type": "notch2D", "h": 0.12}, "small_hill_plane_stress",
+              {**VOCE_MAT, "R00": 1.0, "R11": 1.0, "R22": 1.0, "R01": 1.0}, bcs_2d(0.005), 4,
+              gtype="mechanics_plane_stress"),
+        1.14781780968678e-02, 1e-8,
+    ),
+    "notch_small_J2": (
+        _deck({"type": "notch3D", "h": 0.15, "lz": 0.1, "nz": 1}, "small_hill",
+              {**VOCE_MAT, **UNIT_R}, bcs_3d(0.001), 4),
+        1.42045746802104e-04, 1e-8,
+    ),
 }
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "fused_assembly": ("calibr8_tpu_torch/csrc/fused_assembly.cu",
                        "calibr8_tpu/fem/pallas_assembly.py:496"),
+    "implicit_assembly": ("calibr8_tpu_torch/csrc/implicit_assembly.cu",
+                          "calibr8_tpu/fem/pallas_assembly.py:496"),
     "ebe_matvec": ("calibr8_tpu_torch/csrc/ebe_matvec.cu",
                    "calibr8_tpu/fem/pallas_matvec.py:49"),
     "ell_spmv": ("calibr8_tpu_torch/csrc/ell_spmv.cu",
@@ -188,7 +270,8 @@ def representative_state(prob, seed=0):
 
 
 def phase_kernels(mesh, results):
-    """Phase 2: every kernel against its plain version, f32 and f64."""
+    """Phase 2, slice-1 kernels: each against its plain version at the
+    bench deck's shapes, f32 and f64."""
     from calibr8_tpu_torch.deck import load_deck
     from calibr8_tpu_torch.fem.ebe_matvec import ebe_matvec, ebe_matvec_plain
     from calibr8_tpu_torch.fem.fused_assembly import fused_assembly, fused_assembly_plain
@@ -325,6 +408,156 @@ def phase_kernels(mesh, results):
     return ok
 
 
+def partial_yield_state(disc, nxi, scale, seed=0):
+    """tests/test_torch_implicit.py's state: u_y = scale y^2, u_x =
+    -0.3 scale x plus noise (partial yield), a random nodal pressure for
+    mixed specs, and a small previous plastic strain."""
+    d = disc.spec.dim
+    rng = np.random.default_rng(seed)
+    c = disc.mesh.coords
+    u = np.zeros((disc.n_nodes, d))
+    u[:, 1] = scale * c[:, 1] ** 2
+    u[:, 0] = -0.3 * scale * c[:, 0]
+    u = u + 0.02 * scale * rng.standard_normal(u.shape)
+    parts = [u.reshape(-1)]
+    if disc.spec.mixed:
+        parts.append(0.5 * rng.standard_normal(disc.n_nodes))
+    x = torch.tensor(np.concatenate(parts), dtype=disc.dtype, device=disc.device)
+    xi_prev = torch.tensor(1e-4 * np.random.default_rng(seed + 1).standard_normal((disc.n_elem, nxi)),
+                           dtype=disc.dtype, device=disc.device)
+    return x, xi_prev
+
+
+def gauss_flops(n: int, m: int) -> int:
+    """Operations of c8::gauss_solve on an n x (n + m) system."""
+    return sum(1 + (n + m - k - 1) + 2 * (n - 1) * (n + m - k - 1) for k in range(n))
+
+
+F32_LOCAL_TOL = 1e-6
+IMPLICIT_LIMITS = {"float64": dict(xi=1e-12, R=1e-12, J=1e-11),
+                   "float32": dict(R=1e-4, J=1e-4, path_agree=0.999)}
+
+
+def check_implicit(label, prob, scale, results):
+    """The implicit assembly against its plain version on prob's Disc, in
+    prob's dtype; records (and returns) the check."""
+    from calibr8_tpu_torch.fem.fused_assembly import fused_assembly_plain, implicit_assembly
+
+    disc, bm = prob.disc, prob.assembler.bmodel
+    dn = str(disc.dtype).split(".")[1]
+    w = 4 if disc.dtype == torch.float32 else 8
+    spec = disc.spec
+    E, nde, npe, d, nxi = disc.n_elem, spec.ndofs_elem, spec.npe, spec.dim, bm.nxi
+    x, xi_prev = partial_yield_state(disc, nxi, scale)
+    P = prob.params0
+    iters = torch.zeros(E, dtype=torch.int32, device=DEVICE)
+    out_k = implicit_assembly(disc, bm, x, xi_prev, P, newton_iters=iters)
+    out_p = fused_assembly_plain(disc, bm, x, xi_prev, P)
+    torch.cuda.synchronize()
+    hist = torch.bincount(iters.long(), minlength=17).tolist()
+    same_path = out_k[3] == out_p[3]
+    agree = float(same_path.double().mean())
+    errs = {}
+    for name, a, b in zip(("R", "J", "xi"), out_k[:3], out_p[:3]):
+        # elements whose branch differs (float32) are left out
+        errs[name] = rel_err(a[..., same_path], b[..., same_path])
+    fails = (int(out_k[4].sum()), int(out_p[4].sum()))
+    lim = IMPLICIT_LIMITS[dn]
+    if dn == "float64":
+        ok = agree == 1.0 and bool(torch.equal(out_k[4], out_p[4])) and all(
+            errs[k][0] <= lim[k] for k in ("xi", "R", "J"))
+    else:
+        ok = agree >= lim["path_agree"] and all(errs[k][0] <= lim[k] for k in ("R", "J"))
+    ok = ok and all(bool(torch.isfinite(t).all()) for t in out_k[:3])
+    ms = time_ms(lambda: implicit_assembly(disc, bm, x, xi_prev, P), 10)
+    pms = time_ms(lambda: fused_assembly_plain(disc, bm, x, xi_prev, P), 1, rounds=1)
+    # bytes: every input read once, every output written once
+    nbytes = (disc.n_dofs * w + nde * E * 4 + E * nxi * w + npe * d * E * w + 2 * E * w
+              + P.numel() * w + E * 4 + nde * E * w + nde * nde * E * w + nxi * E * w + 2 * E * 4)
+    # operations counted from c8_implicit.cuh, a lower bound: the small
+    # solves (one per Newton update this run's data needed, one for the
+    # condensation), the condensed rows K and the contraction with grad_N;
+    # the dual arithmetic of the residual evaluations is not counted
+    ng = d * d
+    flops = (sum(i * n for i, n in enumerate(hist)) * gauss_flops(nxi, 1)
+             + E * (gauss_flops(nxi, ng) + 2 * nde * ng * nxi + 2 * nde * npe * d * d))
+    b_ms, b_by = bound(nbytes, flops, dn)
+    rec = dict(kernel="implicit_assembly", case=label, dtype=dn,
+               rel_err={k: v[0] for k, v in errs.items()},
+               max_abs_err=max(e[1] for e in errs.values()), path_agree=agree,
+               plastic=int(out_p[3].sum()), elements=E, fail_kernel_plain=fails,
+               newton_iters_hist=hist, ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, limits=lim, ok=ok)
+    log(json.dumps(rec))
+    if not ok:
+        log(f"FAIL implicit_assembly {label} {dn}")
+    results[("implicit_assembly", label, dn)] = rec
+    return ok, out_k[1]
+
+
+def check_operators_at(label, disc, J_T, results):
+    """The EBE and ELL kernels against their plain versions on disc's
+    shapes (displacement only: nde = 6, ndpn = 2)."""
+    from calibr8_tpu_torch.fem.ebe_matvec import ebe_matvec, ebe_matvec_plain
+    from calibr8_tpu_torch.solve.ellpack import assemble_ell_T, build_ell_maps, ell_spmv, ell_spmv_plain
+
+    dn = str(disc.dtype).split(".")[1]
+    lim = LIMITS[dn]
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    v = torch.randn(disc.n_dofs, generator=gen, device=DEVICE, dtype=disc.dtype)
+    A_T = assemble_ell_T(J_T, disc)
+    nbr_T = build_ell_maps(disc)["nbr_T"]
+    d = disc.spec.dim
+    ok = True
+    for name, fk, fp in (
+        ("ebe_matvec", lambda: ebe_matvec(J_T, v, disc.edofs_T, disc.n_dofs),
+         lambda: ebe_matvec_plain(J_T, v, disc.edofs_T, disc.n_dofs)),
+        ("ell_spmv", lambda: ell_spmv(A_T, nbr_T, v, d), lambda: ell_spmv_plain(A_T, nbr_T, v, d)),
+    ):
+        err, aerr = rel_err(fk(), fp())
+        good = err <= lim
+        ok &= good
+        rec = dict(kernel=name, case=label, dtype=dn, rel_err=err, max_abs_err=aerr,
+                   ms=time_ms(fk, 30), plain_ms=time_ms(fp, 10), limit=lim, ok=good)
+        log(json.dumps(rec))
+        results[(name, label, dn)] = rec
+    return ok
+
+
+def phase_implicit(meshes, results):
+    """Phase 2, implicit assembly: the two full-width Hill decks' shapes,
+    float32 and float64, and the EBE / ELL kernels at the plane-stress
+    shapes."""
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.problem import Problem
+
+    ok = True
+    for label, deck, mesh, scale in (
+        ("cube n=32 small_hill", hill_deck(32), meshes["cube32"], 0.02),
+        ("notch2D h=0.004 small_hill_plane_stress", plane_stress_deck(0.004), meshes["notch004"], 0.01),
+    ):
+        for dtype in (torch.float32, torch.float64):
+            deck_t = copy.deepcopy(deck)
+            if dtype == torch.float32:
+                # float32 cannot reach the decks' local tolerance of 1e-12:
+                # converged plastic lanes then flip branch on rounding
+                # noise until the 16-iteration cap, and the two versions
+                # end in different states.  At 1e-6 they converge; a lane
+                # whose ||C|| lands within rounding of the tolerance stops
+                # one iteration apart in the two, a difference of one
+                # step below 1e-6 (at bench.py's float32 1e-5 that step
+                # can exceed this check's limit; PERF.md has the runs).
+                deck_t["residuals"]["local residual"]["nonlinear absolute tol"] = F32_LOCAL_TOL
+            prob = Problem(load_deck(deck_t), mesh=mesh, device=DEVICE, dtype=dtype)
+            good, J_T = check_implicit(label, prob, scale, results)
+            ok &= good
+            if not prob.disc.spec.mixed:
+                ok &= check_operators_at(label, prob.disc, J_T, results)
+            del prob, J_T
+            torch.cuda.empty_cache()
+    return ok
+
+
 def phase_goldens():
     """Phase 3: goldens on the card in float64."""
     from calibr8_tpu_torch.deck import load_deck
@@ -348,20 +581,19 @@ def phase_goldens():
     return ok
 
 
-def phase_full_width(mesh, operator):
-    """Phase 4: the full-width primal through the port's entry points,
-    with the Krylov operator `operator` ("auto": the assembled ELL
-    matrix; "ebe": the matrix-free element-by-element apply).  Returns
-    (ok, launch counts of this run alone)."""
+def phase_full_width(label, deck, mesh, operator, J_ref, needed):
+    """Phase 4: one full-width primal solve through the port's entry
+    points, float64, with the Krylov operator `operator` ("auto": the
+    assembled ELL matrix; "ebe": the matrix-free element-by-element
+    apply).  Returns (ok, launch counts of this run alone): ok needs J
+    within rel 1e-6 of J_ref and every kernel of `needed` launched."""
     from calibr8_tpu_torch import kernels
     from calibr8_tpu_torch.deck import load_deck
     from calibr8_tpu_torch.problem import Problem
-    from calibr8_tpu_torch.profile_primal import bench_deck
     from calibr8_tpu_torch.utils import timers
 
     t0 = time.perf_counter()
-    prob = Problem(load_deck(bench_deck(32)), mesh=mesh, device=DEVICE,
-                   dtype=torch.float64)
+    prob = Problem(load_deck(copy.deepcopy(deck)), mesh=mesh, device=DEVICE, dtype=torch.float64)
     cfg = prob.step_solver.cfg
     cfg.linear = dataclasses.replace(cfg.linear, operator=operator)
     torch.cuda.synchronize()
@@ -375,26 +607,45 @@ def phase_full_width(mesh, operator):
     solve_s = time.perf_counter() - t0
     counts = dict(kernels.launches)
     J = traj.J
-    rel = abs(J - J_REF_N32) / J_REF_N32
+    rel = abs(J - J_ref) / abs(J_ref)
     steps = [dict(step=i + 1, newton_iterations=info["iterations"] - 1,
                   krylov_iterations=info["krylov_iters"], seconds=info["seconds"],
                   J_step=traj.qoi_values[i])
              for i, info in enumerate(traj.newton_info)]
     summ = timers.summary()
-    rec = dict(full_width="cube n=32 small_J2 mixed u/p, 2 steps, float64, gmres + block_gs",
-               operator=operator, n_elem=prob.disc.n_elem, n_dofs=prob.disc.n_dofs, J=J,
-               J_ref=J_REF_N32, rel_err=rel, steps=steps, setup_s=setup_s, solve_s=solve_s,
+    rec = dict(full_width=label, operator=operator, n_elem=prob.disc.n_elem,
+               n_dofs=prob.disc.n_dofs, J=J, J_ref=J_ref, rel_err=rel, steps=steps,
+               setup_s=setup_s, solve_s=solve_s,
                phases={k: dict(count=v["count"], total_s=v["total"]) for k, v in summ.items()},
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
     log(json.dumps(rec))
-    needed = ["fused_assembly", "ell_spmv" if operator != "ebe" else "ebe_matvec"]
     ok = rel <= 1e-6 and all(counts[k] > 0 for k in needed)
     if not ok:
-        log(f"FAIL full width ({operator}): J rel err {rel:.3e} (limit 1e-6), launches {counts}")
+        log(f"FAIL full width {label} ({operator}): J rel err {rel:.3e} (limit 1e-6), "
+            f"launches {counts}")
     return ok, counts
 
 
-def main() -> int:
+def full_width_runs(meshes):
+    """(label, deck, mesh, operator, J reference, kernels the run must
+    launch) of phase 4; the EBE run of the bench deck takes 1 load step."""
+    from calibr8_tpu_torch.profile_primal import bench_deck
+
+    ebe_deck = bench_deck(32)
+    ebe_deck["discretization"]["num steps"] = 1
+    return [
+        ("cube n=32 small_J2 mixed u/p, 2 steps", bench_deck(32), meshes["cube32"], "auto",
+         J_REF_N32, ["fused_assembly", "ell_spmv"]),
+        ("cube n=32 small_J2 mixed u/p, 1 step", ebe_deck, meshes["cube32"], "ebe",
+         J_REF_N32_STEP1, ["fused_assembly", "ebe_matvec"]),
+        ("cube n=32 small_hill mixed u/p, 2 steps", hill_deck(32), meshes["cube32"], "auto",
+         J_REF_HILL_N32, ["implicit_assembly", "ell_spmv"]),
+        ("notch2D h=0.004 small_hill_plane_stress, 2 steps", plane_stress_deck(0.004),
+         meshes["notch004"], "auto", J_REF_PLANE_STRESS_H004, ["implicit_assembly", "ell_spmv"]),
+    ]
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
@@ -412,6 +663,10 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, "
         f"device {torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    meshes = {"cube32": generators.cube(32), "notch004": generators.notch2d(0.004)}
+    log(f"meshes cube n=32 ({meshes['cube32'].n_elems} elements), notch2D h=0.004 "
+        f"({meshes['notch004'].n_elems} elements): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     built = kernels.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall ({json.dumps(built)})")
     for name in kernels.SOURCES:
@@ -419,12 +674,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    t0 = time.perf_counter()
-    mesh = generators.cube(32)
-    log(f"mesh cube n=32: {time.perf_counter() - t0:.1f} s")
-
     results = {}
-    ok = phase_kernels(mesh, results)
+    ok = phase_kernels(meshes["cube32"], results) and phase_implicit(meshes, results)
     log(f"phase kernels: {'ok' if ok else 'FAILED'} ({time.perf_counter() - t_start:.0f} s)")
     if not ok:
         return 1
@@ -433,17 +684,20 @@ def main() -> int:
     if not ok:
         return 1
     counts = {}
-    for operator in ("auto", "ebe"):
-        ok, c = phase_full_width(mesh, operator)
-        log(f"phase full width, operator {operator}: {'ok' if ok else 'FAILED'} "
+    for label, deck, mesh, operator, J_ref, needed in full_width_runs(meshes):
+        ok, c = phase_full_width(label, deck, mesh, operator, J_ref, needed)
+        log(f"phase full width, {label}, operator {operator}: {'ok' if ok else 'FAILED'} "
             f"({time.perf_counter() - t_start:.0f} s)")
         if not ok:
             return 1
         counts = {k: counts.get(k, 0) + v for k, v in c.items()}
 
     line = []
+    timed = {"fused_assembly": ("fused_assembly", "float64"),
+             "implicit_assembly": ("implicit_assembly", "cube n=32 small_hill", "float64"),
+             "ebe_matvec": ("ebe_matvec", "float64"), "ell_spmv": ("ell_spmv", "float64")}
     for name, (src, repl) in KERNELS.items():
-        r = results[(name, "float64")]
+        r = results[timed[name]]
         line.append(dict(name=name, route="cuda", source=src, replaces=repl,
                          launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
                          plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -457,4 +711,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

@@ -25,11 +25,16 @@ from calibr8_tpu_torch.problem import Problem
 from calibr8_tpu_torch.solve.ellpack import (
     EllOperator, assemble_ell_T, build_ell_maps, ell_maps_from_conn, ell_spmv, ell_spmv_plain,
 )
+from calibr8_tpu.models.twin_cases import HILL2D
 from tests.decks import BCS_2D, BCS_3D, J2_MAT, NOTCH2D, make_deck
 
 MESHES = {
-    "notch2D": (NOTCH2D, BCS_2D(0.02)),
-    "cube3": ({"type": "cube", "n": 3}, BCS_3D(0.02)),
+    # mesh, bcs, model, materials, global residual
+    "notch2D": (NOTCH2D, BCS_2D(0.02), "small_J2", J2_MAT, "mechanics"),
+    "cube3": ({"type": "cube", "n": 3}, BCS_3D(0.02), "small_J2", J2_MAT, "mechanics"),
+    # displacement only: nde = 6, ndpn = 2
+    "notch2D_plane_stress": (NOTCH2D, BCS_2D(0.02), "small_hill_plane_stress", HILL2D,
+                             "mechanics_plane_stress"),
 }
 RTOL = 1e-13
 
@@ -41,8 +46,8 @@ def _close(a, b, rtol=RTOL):
 
 @pytest.fixture(scope="module", params=list(MESHES))
 def system(request):
-    mesh, bcs = MESHES[request.param]
-    deck = make_deck(mesh, "small_J2", J2_MAT, bcs, 1)
+    mesh, bcs, model, mats, gtype = MESHES[request.param]
+    deck = make_deck(mesh, model, mats, bcs, 1, global_type=gtype)
     jp = JaxProblem(jax_load_deck(copy.deepcopy(deck)))
     tp = Problem(load_deck(copy.deepcopy(deck)), device="cpu")
     d = tp.disc
@@ -50,7 +55,7 @@ def system(request):
     c = d.mesh.coords
     u = np.stack([0.02 * c[:, 1] ** 2 if i == 1 else -0.006 * c[:, i] for i in range(d.spec.dim)], 1)
     x = np.concatenate([(u + 4e-4 * rng.standard_normal(u.shape)).reshape(-1),
-                        rng.standard_normal(d.n_nodes)])
+                        rng.standard_normal(d.n_nodes if d.spec.mixed else 0)])
     xi_prev = np.zeros((d.n_elem, tp.model.nxi()))
     _, J_T, diag, _, _, _ = tp.assembler.assemble(torch.tensor(x), torch.tensor(xi_prev), tp.params0)
     bc_dofs, _ = tp.dbcs.arrays(1.0, 1)

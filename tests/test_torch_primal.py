@@ -1,7 +1,8 @@
 """The port's primal solve end to end on the CPU: the goldens of
-tests/decks.py through Problem, the CLI, the device rule, carrying
-calibr8_tpu's parameters and state across, and the loud failure of
-decks outside this slice."""
+tests/decks.py through Problem (elastic, small_J2 and the small-strain
+Hill family, mixed u/p and plane stress), the CLI, the device rule,
+carrying calibr8_tpu's parameters and state across, and the loud failure
+of decks outside the port."""
 
 import copy
 import os
@@ -37,6 +38,11 @@ GOLDENS = {
     "cube_elastic": PRIMAL_REGRESSIONS["cube_elastic"][:3],
     "notch2D_small_J2": PRIMAL_REGRESSIONS["notch2D_small_J2"][:3],
     "notch2D_small_J2_gmres": _notch_gmres(),
+    # the small-strain Hill family (implicit mode): plane strain (mixed),
+    # plane stress ('mechanics_plane_stress'), 3D small_hill on notch3D
+    "notch2D_small_J2_plane_strain": PRIMAL_REGRESSIONS["notch2D_small_J2_plane_strain"][:3],
+    "notch2D_small_J2_plane_stress": PRIMAL_REGRESSIONS["notch2D_small_J2_plane_stress"][:3],
+    "notch_small_J2": PRIMAL_REGRESSIONS["notch_small_J2"][:3],
 }
 
 
@@ -112,13 +118,26 @@ def _unsupported(key):
         deck["residuals"]["global residual"]["type"] = "mechanics_plane_stress"
     elif key == "displacement_only":
         deck["residuals"]["global residual"]["mixed formulation"] = False
+    elif key == "plane_stress_model_mixed":
+        deck = copy.deepcopy(PRIMAL_REGRESSIONS["notch2D_small_J2_plane_stress"][0])
+        deck["residuals"]["global residual"]["type"] = "mechanics"
     elif key == "qoi":
         deck["quantity of interest"] = {"type": "average stress"}
     return deck
 
 
 @pytest.mark.parametrize("key", ["model", "multigrid", "amg", "jitted", "mesh_file", "refinements",
-                                 "plane_stress", "displacement_only", "qoi"])
+                                 "plane_stress", "displacement_only", "plane_stress_model_mixed",
+                                 "qoi"])
 def test_decks_outside_the_slice_fail_loudly(key):
+    """Decks the port cannot run yet raise NotImplementedError.  small_J2
+    under a plane-stress or displacement-only residual, and the plane-
+    stress twin under the mixed one, run calibr8_tpu's generic path, not
+    the fused assembly."""
     with pytest.raises(NotImplementedError):
         Problem(load_deck(_unsupported(key)), device="cpu")
+
+
+def test_unported_model_names_what_it_needs():
+    with pytest.raises(NotImplementedError, match="hyper_J2.*finite-deformation"):
+        Problem(load_deck(_unsupported("model")), device="cpu")

@@ -19,6 +19,7 @@ from calibr8_tpu_torch.fem.bcs import apply_dbcs_residual
 from calibr8_tpu_torch.problem import Problem
 from calibr8_tpu_torch.solve import gmres, linear
 from calibr8_tpu_torch.solve.precond import BlockJacobiGS
+from calibr8_tpu.models.twin_cases import HILL2D
 from tests.decks import BCS_2D, BCS_3D, CUBE, J2_MAT, NOTCH2D, make_deck
 
 
@@ -57,6 +58,9 @@ def test_pcg_matches_jax():
 DECKS = {
     "cube2": make_deck(CUBE, "small_J2", J2_MAT, BCS_3D(0.02), 1),
     "notch2D": make_deck(NOTCH2D, "small_J2", J2_MAT, BCS_2D(0.02), 1),
+    # displacement only (ndpn = 2): the plane-stress Hill twin
+    "notch2D_plane_stress": make_deck(NOTCH2D, "small_hill_plane_stress", HILL2D, BCS_2D(0.02), 1,
+                                      global_type="mechanics_plane_stress"),
 }
 
 
@@ -64,8 +68,10 @@ def _state(d, seed):
     rng = np.random.default_rng(seed)
     c = d.mesh.coords
     u = np.stack([0.02 * c[:, 1] ** 2 if i == 1 else -0.006 * c[:, i] for i in range(d.spec.dim)], 1)
-    return np.concatenate([(u + 4e-4 * rng.standard_normal(u.shape)).reshape(-1),
-                           0.3 * rng.standard_normal(d.n_nodes)])
+    parts = [(u + 4e-4 * rng.standard_normal(u.shape)).reshape(-1)]
+    if d.spec.mixed:
+        parts.append(0.3 * rng.standard_normal(d.n_nodes))
+    return np.concatenate(parts)
 
 
 @pytest.fixture(scope="module", params=list(DECKS))
