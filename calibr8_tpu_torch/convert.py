@@ -5,6 +5,8 @@ Both packages order elements by element set the same way
 dofs u block then p block, and order parameters as the model's
 param_names, so the numpy arrays of one package are valid state of the
 other unchanged; this module only checks their shapes and moves them.
+trajectory_from_numpy carries a whole primal trajectory across, so the
+port's adjoint sweep can run on calibr8_tpu's primal solution.
 """
 
 from __future__ import annotations
@@ -35,3 +37,25 @@ def state_from_numpy(params_all, x=None, xi=None, *, device, dtype=torch.float64
     else:
         out.append(None)
     return tuple(out)
+
+
+def trajectory_from_numpy(x, xi, path, qoi_values=None, *, device, dtype=torch.float64):
+    """A primal Trajectory of the port from per-step arrays (index 0 = the
+    initial state), e.g. the fields x, xi, path, qoi_values of
+    calibr8_tpu's Trajectory: x[k] (n_dofs,), xi[k] (n_elem, nxi),
+    path[k] (n_elem,).  Arrays are copied; path becomes int32."""
+    from calibr8_tpu_torch.solve.primal import Trajectory
+
+    if not len(x) == len(xi) == len(path):
+        raise ValueError(f"x, xi, path have {len(x)}, {len(xi)}, {len(path)} steps")
+    xs, xis, paths = [], [], []
+    for k in range(len(x)):
+        _, xk, xik = state_from_numpy(np.zeros((1, 1)), x[k], xi[k], device=device, dtype=dtype)
+        pk = np.asarray(path[k])
+        if pk.ndim != 1 or pk.shape[0] != xik.shape[0]:
+            raise ValueError(f"path[{k}] has shape {pk.shape}, want ({xik.shape[0]},)")
+        xs.append(xk)
+        xis.append(xik)
+        paths.append(torch.tensor(pk, dtype=torch.int32, device=device))
+    vals = [float(v) for v in qoi_values] if qoi_values is not None else [0.0] * (len(x) - 1)
+    return Trajectory(x=xs, xi=xis, path=paths, qoi_values=vals)

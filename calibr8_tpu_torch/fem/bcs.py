@@ -111,6 +111,14 @@ def apply_dbcs_residual(R, diag, x, bc_dofs, bc_vals):
     return R
 
 
+def zero_dbc_rows(R, bc_dofs):
+    """The adjoint variant: constrained rows zeroed (dbcs.cpp:102-104);
+    returns a copy."""
+    R = R.clone()
+    R[bc_dofs] = 0.0
+    return R
+
+
 def apply_dbcs_matvec(Jv, diag, v, bc_dofs):
     """(J v)_row <- diag * v_row for constrained rows, in place on Jv
     (a fresh operator output in every caller)."""

@@ -42,30 +42,14 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from calibr8_tpu_torch import kernels
-from calibr8_tpu_torch.fem import basis
-from calibr8_tpu_torch.mechanics.global_residual import PARENT_MEASURE
-from calibr8_tpu_torch.models.batched import KERNEL_MODEL_ID, get_batched_model, jvp_columns, usum
+from calibr8_tpu_torch.mechanics.global_residual import (
+    PARENT_MEASURE, elem_kinematics, make_elem_rows, quadrature_tables, stab_tau,
+)
+from calibr8_tpu_torch.models.batched import KERNEL_MODEL_ID, get_batched_model, jvp_columns
 from calibr8_tpu_torch.utils.smallsolve import gauss_solve_T
-
-
-def quadrature_tables(d: int):
-    """(N1 (npts, npe), w1 (npts,), mass (npe, npe)) of the order-2
-    pressure rule, as Python floats: mass[n][m] = sum_q w1 N1[q][n]
-    N1[q][m], summed as calibr8_tpu sums it (pallas_assembly.py:226-232)."""
-    pts, w = basis.quadrature(d, 2)
-    N1 = basis.shape_values(d, pts)
-    npe = d + 1
-    N1v = [[float(N1[q, n]) for n in range(npe)] for q in range(N1.shape[0])]
-    w1v = [float(x) for x in np.asarray(w).ravel()]
-    mass = [
-        [sum(w1v[q] * N1v[q][n] * N1v[q][m] for q in range(len(w1v))) for m in range(npe)]
-        for n in range(npe)
-    ]
-    return N1v, w1v, mass
 
 
 def check_supported(bmodel, spec) -> None:
@@ -214,58 +198,23 @@ def fused_assembly_plain(disc, bmodel, x, xi_prev, params_all):
     E = disc.n_elem
     ngu = d * d
     mixed = spec.mixed
-    thick = float(spec.thickness)
     dtype = x.dtype
-    N1v, w1v, mass = quadrature_tables(d)
-    meas0 = PARENT_MEASURE[d]
+    _, _, mass = quadrature_tables(d)
 
-    xm = x[disc.edofs].T.reshape(npe, ndpn, E)
-    u_T = xm[:, :d]
+    x_eT = x[disc.edofs].T
     gNT = disc.gN_T
     dJ, hh = disc.detJ, disc.h
+    geom = (gNT, dJ, hh)
     parT = params_all[disc.es_ids].T
     xipT = xi_prev.T
-    wdv0 = dJ * meas0
-
-    # grad_u[i, j] = sum_n u[n, i] gN[n, j]
-    gu = torch.stack(
-        [torch.stack([usum(u_T[:, i] * gNT[:, j], 0) for j in range(d)]) for i in range(d)]
-    )
-
-    if mixed:
-        # state-independent pressure data (frozen under the seeds)
-        p_eT = xm[:, d]
-        mu = parT[0] / (2.0 * (1.0 + parT[1]))
-        psf = bmodel.pressure_scale_factor(parT)
-        tau = spec.stab_multiplier * 0.5 * hh * hh / mu
-        p_ip = usum(p_eT, 0) * (1.0 / npe)
-        grad_p = [usum(p_eT * gNT[:, j], 0) for j in range(d)]
-        coef = [
-            (usum(torch.stack([N1v[q][n] * p_eT[n] for n in range(npe)]), 0) / psf) * (w1v[q] * dJ)
-            for q in range(len(w1v))
-        ]
-        stab_gp = [tau * g for g in grad_p]
-    else:
-        p_ip = dJ * 0.0
+    wdv0 = dJ * PARENT_MEASURE[d]
+    gu = elem_kinematics(spec, x_eT, gNT)
+    # the nodal pressures are constants of the grad_u (and xi) seeds
+    p_eT = x_eT.reshape(npe, ndpn, E)[:, d] if mixed else None
+    elem_rows = make_elem_rows(bmodel, spec)
 
     def S_rows(xi_, gu_):
-        """Residual rows (nde, E) at frozen nodal pressures; displacement-
-        only specs have the thickness-weighted momentum rows alone."""
-        sigma = bmodel.cauchy(xi_, gu_, parT, p_ip)
-        rows = []
-        if not mixed:
-            for n in range(npe):
-                for i in range(d):
-                    rows.append(usum(sigma[i] * gNT[n], 0) * wdv0 * thick)
-            return torch.stack(rows)
-        rp_const = -(bmodel.hydro_cauchy(xi_, gu_, parT) / psf) * (1.0 / npe) * wdv0
-        for n in range(npe):
-            for i in range(d):
-                rows.append(usum(sigma[i] * gNT[n], 0) * wdv0)
-            stab_n = usum(torch.stack(stab_gp) * gNT[n], 0)
-            r_p1 = usum(torch.stack([coef[q] * N1v[q][n] for q in range(len(w1v))]), 0)
-            rows.append(rp_const - stab_n * wdv0 - r_p1)
-        return torch.stack(rows)
+        return elem_rows(xi_, gu_, p_eT, geom, parT)
 
     gu0f = gu.reshape(ngu, E)
     if bmodel.analytic_solve:
@@ -312,7 +261,8 @@ def fused_assembly_plain(disc, bmodel, x, xi_prev, params_all):
         # p columns of the pressure rows: -tau wdv0 gg[m, n] - (dJ/psf) mass[n][m]
         gg = torch.einsum("njE,mjE->nmE", gNT, gNT)
         mass_t = torch.tensor(mass, dtype=dtype, device=x.device)
-        J5[:, d, :, d] = -tau * wdv0 * gg - (dJ / psf) * mass_t[:, :, None]
+        J5[:, d, :, d] = (-stab_tau(spec, parT, hh) * wdv0 * gg
+                          - (dJ / bmodel.pressure_scale_factor(parT)) * mass_t[:, :, None])
     return R_T, J_T, xiT, path, fail
 
 

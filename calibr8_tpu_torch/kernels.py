@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_assembly", "implicit_assembly", "ebe_matvec", "ell_spmv")
+SOURCES = ("fused_assembly", "implicit_assembly", "ebe_matvec", "ell_spmv", "ell_spmv_T")
 HEADERS = ("c8_dual.cuh", "c8_element.cuh", "c8_hill.cuh", "c8_implicit.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

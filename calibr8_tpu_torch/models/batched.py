@@ -10,7 +10,9 @@ the two agree to rounding.
 
 Analytic twins (elastic, small_J2) solve the local state in closed form;
 implicit twins (the small-strain Hill family) run implicit_newton, and
-the assembly condenses dxi/dgu through their residual.  Each twin takes
+the assembly condenses dxi/dgu through their residual.  Every twin has
+the local residual C with the branch forced to a given path, which the
+adjoint blocks (fem/adjoint_blocks.py) differentiate.  Each twin takes
 grad_u (d, d, E) directly (calibr8_tpu passes a Kinematics whose
 grad_u_prev none of these models reads).  Tangent
 rules follow JAX's, which the plain version reproduces under
@@ -133,6 +135,27 @@ class BatchedSmallJ2:
         path = plastic.to(torch.int32)
         return xiT, path, torch.zeros_like(path)
 
+    def residual(self, xiT, xipT, gu, parT, path):
+        """The local residual C with the branch forced to `path`
+        (calibr8_tpu models/small_strain.py:92-148): plastic rows
+        pstrain - pstrain_old - sqrt(3/2) dalpha n and f, elastic rows
+        the increments.  The branches are selected with torch.where, whose
+        tangent is the selected branch's, as jnp.where's is."""
+        d, nc = self.dim, self.nc
+        mu = self._mu(parT)
+        K, Y = parT[2], parT[3]
+        ps = t_voigt_to_sym(xiT[:nc], d)
+        ps_old = t_voigt_to_sym(xipT[:nc], d)
+        alpha, alpha_old = xiT[nc], xipT[nc]
+        s = self.dev_cauchy(xiT, gu, parT)
+        s_mag = t_norm(s)
+        f = (s_mag - SQRT_23 * (Y + K * alpha)) / mu
+        R_p_plastic = ps - ps_old - (SQRT_32 * (alpha - alpha_old)) * (s / s_mag)
+        plastic = path == 1
+        R_p = torch.where(plastic, R_p_plastic, ps - ps_old)
+        R_a = torch.where(plastic, f, alpha - alpha_old)
+        return torch.cat([t_sym_to_voigt(R_p, d), R_a[None, :]])
+
     def cauchy(self, xiT, gu, parT, pT):
         """sigma = dev_cauchy - p I, (d, d, E)."""
         return t_sub_diag(self.dev_cauchy(xiT, gu, parT), pT)
@@ -167,6 +190,10 @@ class BatchedElastic:
     def local_solve(self, xipT, gu, parT):
         path = torch.zeros(xipT.shape[-1], dtype=torch.int32, device=xipT.device)
         return torch.zeros_like(xipT), path, torch.zeros_like(path)
+
+    def residual(self, xiT, xipT, gu, parT, path):
+        """C = xi (models/elastic.py:52-53): the dummy slot stays 0."""
+        return xiT
 
     def dev_cauchy(self, xiT, gu, parT):
         return 2.0 * self._mu(parT) * t_dev3(t_sym(gu))

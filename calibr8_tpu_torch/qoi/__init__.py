@@ -1,5 +1,5 @@
 """QoI registry (reference create_qoi, qoi.cpp:261-289); registry strings
-match the reference deck vocabulary.  This slice ports `average
+match the reference deck vocabulary.  The port has `average
 displacement`; the other QoIs raise NotImplementedError."""
 
 from __future__ import annotations

@@ -10,10 +10,10 @@ from calibr8_tpu_torch.qoi.base import QoI
 class AvgDisp(QoI):
     name = "average displacement"
 
-    def elem_values(self, x_e, x_prev_e, xi, params):
-        disc = self.disc
-        spec = disc.spec
-        u_e, _ = spec.unpack(x_e)  # (E, npe, d)
-        wdv = disc.detJ * PARENT_MEASURE[spec.dim]
-        u_ip = u_e.mean(dim=1)  # P1 centroid interpolation
-        return u_ip.sum(dim=1) / spec.dim * wdv
+    def elem_value(self, x_e, x_prev_e, xi, geom, params, aux):
+        spec = self.disc.spec
+        _, detJ, _ = geom
+        u_e, _ = spec.unpack(x_e)  # (npe, d)
+        wdv = detJ * PARENT_MEASURE[spec.dim]
+        u_ip = u_e.mean(dim=0)  # P1 centroid interpolation
+        return u_ip.sum() / spec.dim * wdv

@@ -13,7 +13,8 @@ every apply is scatter-free:
   y[n] = sum_s A[s, :, :, n] @ x[nbr[n, s]]
 
 The apply is the ell_spmv kernel (csrc/ell_spmv.cu) on the card and its
-plain version on the CPU.  Slots are packed densely per row (sorted
+plain version on the CPU; the transposed apply y = A^T x of the adjoint
+solves is the ell_spmv_T kernel (csrc/ell_spmv_T.cu) on the same A_T.  Slots are packed densely per row (sorted
 column order); calibr8_tpu's stencil canonicalization
 (solve/ellpack.py:70-111 there) served the TPU's static-slice gather and
 is not carried over.  Assembly A_T <- J_T is one index_add_ over the
@@ -93,13 +94,8 @@ def assemble_ell_T(J_T, disc):
 _ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
 
 
-def ell_spmv(A_T, nbr_T, x, dim: int):
-    """y = A x for the node-block ELL matrix (A_T, nbr_T) and the flat
-    dof vector x (u block of n*dim, then the p block when
-    ndpn = dim + 1).  On CUDA tensors this launches the kernel (or
-    raises); on CPU tensors it runs the plain version."""
-    if not x.is_cuda:
-        return ell_spmv_plain(A_T, nbr_T, x, dim)
+def _launch(name, symbol, A_T, nbr_T, x, dim, y):
+    """Check the inputs of an ELL kernel and launch it into y."""
     req = kernels.require
     K, ndpn, _, n = A_T.shape
     req(A_T.shape == (K, ndpn, ndpn, n), f"A_T has shape {tuple(A_T.shape)}")
@@ -107,46 +103,94 @@ def ell_spmv(A_T, nbr_T, x, dim: int):
     req(nbr_T.shape == (K, n) and nbr_T.dtype == torch.int32, "nbr_T must be (K, n) int32")
     req(x.shape == (n * ndpn,), f"x has shape {tuple(x.shape)}, want ({n * ndpn},)")
     req(A_T.dtype == x.dtype, f"A_T is {A_T.dtype}, x is {x.dtype}")
-    for name, t in (("A_T", A_T), ("nbr_T", nbr_T), ("x", x)):
-        req(t.device == x.device, f"{name} is on {t.device}, x on {x.device}")
-        req(t.is_contiguous(), f"{name} is not contiguous")
-    y = torch.empty_like(x)
-    fn = kernels.function("ell_spmv", "c8_ell_spmv", _ARGTYPES)
+    for arg, t in (("A_T", A_T), ("nbr_T", nbr_T), ("x", x)):
+        req(t.device == x.device, f"{arg} is on {t.device}, x on {x.device}")
+        req(t.is_contiguous(), f"{arg} is not contiguous")
+    fn = kernels.function(name, symbol, _ARGTYPES)
     err = fn(
         x.device.index, kernels.dtype_code(x.dtype), dim, ndpn, n, K, A_T.data_ptr(), nbr_T.data_ptr(),
         x.data_ptr(), y.data_ptr(), kernels.stream_ptr(x.device),
     )
-    kernels.check("ell_spmv", err)
-    kernels.launches["ell_spmv"] += 1
+    kernels.check(name, err)
+    kernels.launches[name] += 1
     return y
 
 
-def ell_spmv_plain(A_T, nbr_T, x, dim: int):
-    """The plain PyTorch version: gather the neighbour rows of the node
-    matrix (a zero row stands for the pad slots), contract."""
-    K, ndpn, _, n = A_T.shape
+def ell_spmv(A_T, nbr_T, x, dim: int):
+    """y = A x for the node-block ELL matrix (A_T, nbr_T) and the flat
+    dof vector x (u block of n*dim, then the p block when
+    ndpn = dim + 1).  On CUDA tensors this launches the kernel (or
+    raises); on CPU tensors it runs the plain version."""
+    if not x.is_cuda:
+        return ell_spmv_plain(A_T, nbr_T, x, dim)
+    return _launch("ell_spmv", "c8_ell_spmv", A_T, nbr_T, x, dim, torch.empty_like(x))
+
+
+def ell_spmv_T(A_T, nbr_T, x, dim: int):
+    """y = A^T x for the same matrix and layout as ell_spmv (kernel 3b).
+    On CUDA tensors this launches the kernel (or raises); on CPU tensors
+    it runs the plain version."""
+    if not x.is_cuda:
+        return ell_spmv_T_plain(A_T, nbr_T, x, dim)
+    # zeros, not empty: the kernel adds into y
+    return _launch("ell_spmv_T", "c8_ell_spmv_T", A_T, nbr_T, x, dim, torch.zeros_like(x))
+
+
+def _node_matrix(x, n, dim, ndpn):
+    """Flat dofs -> (n, ndpn) node matrix [u | p]."""
     X = x[: n * dim].reshape(n, dim)
     if ndpn > dim:
         X = torch.cat([X, x[n * dim :].reshape(n, 1)], dim=1)
-    Xp = torch.cat([X, torch.zeros(1, ndpn, dtype=x.dtype, device=x.device)])
-    G = Xp[nbr_T.long()]  # (K, n, ndpn)
-    Y = torch.einsum("sijn,snj->ni", A_T, G)
+    return X
+
+
+def _flat(Y, dim, ndpn):
+    """(n, ndpn) node matrix -> flat dofs (u block, then p block)."""
     parts = [Y[:, :dim].reshape(-1)]
     if ndpn > dim:
         parts.append(Y[:, dim])
     return torch.cat(parts)
 
 
-class EllOperator:
-    """y = A x with Dirichlet rows diag * x, assembled once per Jacobian."""
+def ell_spmv_plain(A_T, nbr_T, x, dim: int):
+    """The plain PyTorch version: gather the neighbour rows of the node
+    matrix (a zero row stands for the pad slots), contract."""
+    K, ndpn, _, n = A_T.shape
+    X = _node_matrix(x, n, dim, ndpn)
+    Xp = torch.cat([X, torch.zeros(1, ndpn, dtype=x.dtype, device=x.device)])
+    G = Xp[nbr_T.long()]  # (K, n, ndpn)
+    return _flat(torch.einsum("sijn,snj->ni", A_T, G), dim, ndpn)
 
-    def __init__(self, disc, J_T, diag, bc_dofs):
+
+def ell_spmv_T_plain(A_T, nbr_T, x, dim: int):
+    """The plain PyTorch version of ell_spmv_T: the per-slot products
+    Gt[s, j, n] = sum_i A[s, i, j, n] x[n, i], then the transpose of the
+    neighbour gather, an index_add_ over nbr_T into a node matrix with
+    one extra row that takes the pad slots' (zero) products."""
+    K, ndpn, _, n = A_T.shape
+    X = _node_matrix(x, n, dim, ndpn)
+    Gt = torch.einsum("sijn,ni->snj", A_T, X)  # (K, n, ndpn)
+    Y = torch.zeros(n + 1, ndpn, dtype=x.dtype, device=x.device)
+    Y.index_add_(0, nbr_T.reshape(-1).long(), Gt.reshape(K * n, ndpn))
+    return _flat(Y[:n], dim, ndpn)
+
+
+class EllOperator:
+    """y = A x (or, with transpose, y = A^T x) with the Dirichlet rows
+    replaced by diag * x, assembled once per Jacobian from the forward
+    element Jacobians J_T.  The transposed operator is the adjoint
+    system's (calibr8_tpu solve/linear.py:130-133): transpose first, then
+    eliminate rows; its apply is the ell_spmv_T kernel on the same A_T."""
+
+    def __init__(self, disc, J_T, diag, bc_dofs, transpose: bool = False):
         self.disc = disc
         self.diag = diag
         self.bc_dofs = bc_dofs
+        self.transpose = transpose
         self.A_T = assemble_ell_T(J_T, disc)
         self.nbr_T = build_ell_maps(disc)["nbr_T"]
 
     def __call__(self, v):
-        y = ell_spmv(self.A_T, self.nbr_T, v, self.disc.spec.dim)
+        apply = ell_spmv_T if self.transpose else ell_spmv
+        y = apply(self.A_T, self.nbr_T, v, self.disc.spec.dim)
         return apply_dbcs_matvec(y, self.diag, v, self.bc_dofs)

@@ -7,7 +7,9 @@ right-preconditioned GMRES(m) with manual restarts from the true
 residual (or PCG).  The Krylov operator is the assembled node-block ELL
 matrix (solve/ellpack.py) unless LinearCfg.operator == "ebe", which
 applies the element Jacobians directly (fem/ebe_matvec.py); on the card
-each is a CUDA kernel, on the CPU its plain version.
+each is a CUDA kernel, on the CPU its plain version.  The transposed
+solves of the adjoint apply A^T of the same assembled matrix (the
+ell_spmv_T kernel), or the EBE kernel on transposed element blocks.
 """
 
 from __future__ import annotations
@@ -35,6 +37,10 @@ class LinearCfg:
     preconditioner: str = "block_gs"
     # 'auto' = assembled node-block ELL; 'ebe' = element-by-element apply
     operator: str = "auto"
+    # restart cycles (GMRES) or correction solves (CG) beyond the
+    # max_iters budget: the adjoint solve's refinement loop
+    # (adjoint.cpp:113-180); Adjoint asks for at least 2
+    refine_iters: int = 0
 
 
 def _norm(v) -> float:
@@ -71,6 +77,14 @@ def solve_info(cfg: LinearCfg, J_T, disc, diag, b, bc_dofs, transpose: bool = Fa
 
     if method == "cg":
         x, _ = pcg(op, b, M, cfg.tol, cfg.max_iters)
+        for _ in range(cfg.refine_iters):
+            r = b - op(x)
+            if _norm(r) <= cfg.tol * norm_b:
+                break
+            dx, _ = pcg(op, r, M, cfg.tol, cfg.max_iters)
+            cand = x + dx
+            if bool(torch.isfinite(cand).all()):
+                x = cand
         rr = _norm(b - op(x)) / safe_nb
         return (x, rr, 0) if return_iters else (x, rr)
 
@@ -79,10 +93,12 @@ def solve_info(cfg: LinearCfg, J_T, disc, diag, b, bc_dofs, transpose: bool = Fa
     # one digit below the outer atol; a non-improving or non-finite
     # cycle is dropped; after a no-progress cycle the next one runs full
     # length (early exit off); two consecutive no-progress cycles end the
-    # solve.  max_iters counts TOTAL inner iterations.  RIGHT
-    # preconditioning keeps the minimization in the true residual norm.
+    # solve.  max_iters counts the inner iterations of the first
+    # ceil(max_iters / restart) cycles; refine_iters cycles more may
+    # follow.  RIGHT preconditioning keeps the minimization in the true
+    # residual norm.
     restart = min(cfg.restart, n_dofs)
-    n_outer = max(1, -(-cfg.max_iters // restart))
+    n_outer = max(1, -(-cfg.max_iters // restart)) + cfg.refine_iters
     atol = cfg.tol * norm_b
 
     def opM(v):
@@ -110,11 +126,14 @@ def solve_info(cfg: LinearCfg, J_T, disc, diag, b, bc_dofs, transpose: bool = Fa
 
 
 def _gmres_setup(cfg, J_T, disc, diag, bc_dofs, transpose):
-    """Krylov operator + preconditioner."""
-    op_T = J_T.transpose(0, 1).contiguous() if transpose else J_T
+    """Krylov operator + preconditioner.  The ELL operator assembles the
+    forward J_T either way and applies A^T with the ell_spmv_T kernel
+    when transposed; the EBE operator applies the transposed element
+    blocks (a transposed copy of J_T)."""
     if cfg.operator != "ebe":
-        op = EllOperator(disc, op_T, diag, bc_dofs)
+        op = EllOperator(disc, J_T, diag, bc_dofs, transpose=transpose)
     else:
+        op_T = J_T.transpose(0, 1).contiguous() if transpose else J_T
 
         def op(v):
             return apply_dbcs_matvec(ebe_matvec_T(op_T, disc, v), diag, v, bc_dofs)

@@ -2,8 +2,8 @@
 
 The counterpart of calibr8_tpu's solve/primal.py (reference
 Primal::solve_at_step over steps, primal.cpp, main_primal.cpp:221-244).
-Stores the per-step trajectory (x, xi, path), which the adjoint sweep of
-a later slice consumes backwards.
+Stores the per-step trajectory (x, xi, path), which the adjoint sweep
+(solve/adjoint.py) consumes backwards.
 """
 
 from __future__ import annotations
@@ -31,6 +31,13 @@ class TimeGrid:
 
     def time(self, step: int) -> float:
         return float(self.times[step])
+
+    def dt(self, step: int) -> float:
+        return float(self.times[step] - self.times[step - 1])
+
+    @property
+    def total_time(self) -> float:
+        return float(self.times[-1] - self.times[0])
 
 
 @dataclass
@@ -79,7 +86,8 @@ class Primal:
             )
             J_step = 0.0
             if self.qoi is not None:
-                J_step = float(self.qoi.evaluate(x_new, x, xi_new, params_all))
+                aux = self.qoi.setup_step(step, t, tg.dt(step), tg.total_time)
+                J_step = float(self.qoi.evaluate(x_new, x, xi_new, params_all, aux))
             traj.x.append(x_new)
             traj.xi.append(xi_new)
             traj.path.append(path_new)

@@ -1,13 +1,33 @@
 #!/usr/bin/env python3
-"""calibr8_tpu's (JAX, CPU, float64) J of chip_smoke.py's full-width Hill
-decks: the references phase 4 of chip_smoke.py holds the port to.
+"""calibr8_tpu's (JAX, CPU, float64) references for chip_smoke.py's
+full-width decks: the values chip_smoke.py holds the port to.
 
     JAX_PLATFORMS=cpu python3 chip_reference.py [plane_stress] [hill]
+    JAX_PLATFORMS=cpu python3 chip_reference.py adjoint DIR [bench] [hill]
+    python3 chip_reference.py sweep DIR [bench] [hill]
 
-Runs each named deck (both by default) through calibr8_tpu's
-Problem(...).solve_primal() on the CPU and prints one JSON line per deck
-with J, the per-step contributions and the wall time.  Needs JAX and the
-calibr8_tpu package; chip_smoke.py itself imports neither.
+The first form runs each named Hill deck (both by default) through
+calibr8_tpu's Problem(...).solve_primal() and prints one JSON line per
+deck with J, the per-step contributions and the wall time.
+
+The second runs calibr8_tpu's AdjointObjective.gradient (the CLI's
+`pdeco` objective: default LinearCfg, tightened by Adjoint) on each named
+full-width adjoint deck of chip_smoke.py (chip_smoke.adjoint_deck, both by
+default) at the deck's own parameters, and prints one JSON line per deck
+with the canonical gradient, J, the adjoint's relative residual per step
+and the wall times.  The primal trajectory (x, xi, path of the load steps)
+and the gradient go to DIR/adjoint_ref_<name>.npz, so that the
+port's sweep can be run on calibr8_tpu's own trajectory.
+
+The third runs that sweep: the port's Adjoint on the card, on the
+trajectory saved in DIR/adjoint_ref_<name>.npz, and prints one JSON line
+per deck with the canonical gradient against calibr8_tpu's.  It needs
+the card and no JAX.
+
+The first two need JAX and the calibr8_tpu package; chip_smoke.py itself
+imports neither.  Full-width decks are for a machine with the memory and the
+minutes for them (the primal of one such deck took 400-800 s on an 8-core
+CPU).
 """
 
 from __future__ import annotations
@@ -21,19 +41,15 @@ import time
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 DECKS = ("plane_stress", "hill")
+ADJOINT_DECKS = ("bench", "hill")
 
 
-def main(argv) -> int:
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
+def primal_references(names, chip_smoke) -> None:
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
-    import chip_smoke
     from calibr8_tpu.deck import load_deck
     from calibr8_tpu.problem import Problem
 
-    names = argv[1:] or list(DECKS)
     decks = {"plane_stress": ("J_REF_PLANE_STRESS_H004", chip_smoke.plane_stress_deck(0.004)),
              "hill": ("J_REF_HILL_N32", chip_smoke.hill_deck(32))}
     for name in names:
@@ -48,6 +64,111 @@ def main(argv) -> int:
         print(json.dumps(dict(reference=const, J=traj.J, J_steps=[float(v) for v in traj.qoi_values],
                               seconds=time.perf_counter() - t0, jax=jax.__version__,
                               cpus=os.cpu_count())), flush=True)
+
+
+def adjoint_references(names, chip_smoke, out_dir) -> None:
+    import jax
+    import numpy as np
+
+    from calibr8_tpu.deck import load_deck
+    from calibr8_tpu.opt.objective import ActiveParams, AdjointObjective
+    from calibr8_tpu.problem import Problem
+    from calibr8_tpu.solve.adjoint import Adjoint
+    from calibr8_tpu.solve.linear import LinearCfg
+
+    for name in names:
+        const = {"bench": "G_REF_N32", "hill": "G_REF_HILL_N32"}[name]
+        t0 = time.perf_counter()
+        spec = load_deck(chip_smoke.adjoint_deck(name))
+        prob = Problem(spec)
+        adj = Adjoint(prob.assembler, prob.qoi, prob.dbcs, LinearCfg())
+        relres = {}
+        check = adj._check_linear
+
+        def record(rr, step, check=check, relres=relres):
+            relres[int(step)] = float(rr)
+            check(rr, step)
+
+        adj._check_linear = record
+        active = ActiveParams.from_inverse_spec(
+            spec.inverse, prob.disc.elem_set_names, prob.model.param_names)
+        obj = AdjointObjective(prob, adj, active)
+        x0 = active.to_canonical(active.extract(np.asarray(prob.params0)))
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        J = obj.value(x0)
+        primal_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g = np.asarray(obj.gradient(x0), dtype=np.float64)
+        adjoint_s = time.perf_counter() - t0
+        traj = obj._cache_traj
+        n = len(traj.x)
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"adjoint_ref_{name}.npz")
+        np.savez_compressed(
+            path, grad=g, x0=x0, names=np.asarray(active.names),
+            x=np.stack([np.asarray(traj.x[k]) for k in range(1, n)]),
+            xi=np.stack([np.asarray(traj.xi[k]) for k in range(1, n)]),
+            path=np.stack([np.asarray(traj.path[k]) for k in range(1, n)]),
+        )
+        print(json.dumps(dict(reference=const, grad=[float(v) for v in g], names=active.names,
+                              J=float(J), adjoint_relres=relres, setup_s=setup_s,
+                              primal_s=primal_s, adjoint_s=adjoint_s, saved=path,
+                              jax=jax.__version__, cpus=os.cpu_count())), flush=True)
+
+
+def sweep_on_references(names, chip_smoke, ref_dir) -> None:
+    import numpy as np
+    import torch
+
+    from calibr8_tpu_torch.convert import trajectory_from_numpy
+    from calibr8_tpu_torch.mesh import generators
+
+    mesh = generators.cube(32)
+    for name in names:
+        z = np.load(os.path.join(ref_dir, f"adjoint_ref_{name}.npz"))
+        prob, adj, obj, x0 = chip_smoke.adjoint_objective(chip_smoke.adjoint_deck(name), mesh=mesh)
+        disc = prob.disc
+        # step 0, the initial state, is zero in both packages
+        traj = trajectory_from_numpy(
+            [np.zeros(disc.n_dofs)] + list(z["x"]),
+            [np.zeros((disc.n_elem, prob.model.nxi()))] + list(z["xi"]),
+            [np.zeros(disc.n_elem, np.int32)] + list(z["path"]),
+            device=disc.device,
+        )
+        params_all = obj._params_all(x0)
+        t0 = time.perf_counter()
+        grad_all, _ = adj.sweep(traj, params_all, prob.time_grid)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        g = obj.active.grad_to_canonical(obj.active.extract_grad(grad_all),
+                                         obj.active.extract(params_all))
+        ref = z["grad"]
+        print(json.dumps(dict(sweep_on_reference_trajectory=name, names=obj.active.names,
+                              grad=g.tolist(), grad_ref=ref.tolist(),
+                              rel_err=float(np.abs(g - ref).max() / np.abs(ref).max()),
+                              steps=adj.step_info, sweep_s=sweep_s,
+                              device=torch.cuda.get_device_name(0))), flush=True)
+
+
+def main(argv) -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    args = argv[1:]
+    if args[:1] == ["sweep"]:
+        import chip_smoke
+
+        sweep_on_references(args[2:] or list(ADJOINT_DECKS), chip_smoke, args[1])
+        return 0
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import chip_smoke
+
+    if args[:1] == ["adjoint"]:
+        adjoint_references(args[2:] or list(ADJOINT_DECKS), chip_smoke, args[1])
+    else:
+        primal_references(args or list(DECKS), chip_smoke)
     return 0
 
 

@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero without the result lines:
 
  1. device: the card's name and power limit (nvidia-smi), the torch and
-    CUDA versions, and the build of the four CUDA kernels from
+    CUDA versions, and the build of the five CUDA kernels from
     calibr8_tpu_torch/csrc with nvcc (one process per source, in
     parallel), with ptxas's register and spill report.
  2. each kernel against its plain PyTorch version, in float32 and
@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero without the result lines:
     plastic and elastic elements: the slice-1 kernels at cube n=32,
     small_J2, mixed u/p (196,608 elements, 143,748 dofs); the implicit
     assembly at cube n=32 small_hill (mixed u/p) and at notch2D h=0.004
-    small_hill_plane_stress (displacement only), with the EBE and ELL
+    small_hill_plane_stress (displacement only), with the EBE and both ELL
     kernels held once more at the latter's shapes (nde = 6, ndpn = 2).
+    The transposed ELL kernel (3b) is also held, with the whole transposed
+    operator, at the bench deck's shapes.
     Each record: max error relative to max|plain|, the kernel's time per
     call (CUDA events around back-to-back calls), the plain version's, a
     one-call PyTorch yardstick where one exists, the least time the card
@@ -32,9 +34,15 @@ Phases, in order; any failure exits non-zero without the result lines:
     small_hill_plane_stress ('mechanics_plane_stress', 2 load steps).
     Each run's launch counts are set to 0 just before it and read just
     after; J is held at rel 1e-6 to its reference.
- 5. one JSON line listing every ported kernel (launches: the sum over
-    the runs of phase 4), the card's name and power limit, and the `ok`
-    line last.
+ 5. the adjoint (float64), through AdjointObjective's value and
+    gradient: (a) the notch2D small_J2 8-step deck against finite
+    differences, log10 error drop > 6; (b) the bench deck and (c) cube
+    n=32 small_hill (adjoint_deck), dJ/dp held at 1e-5 to calibr8_tpu's
+    (G_REF_*), every adjoint relative residual <= 0.5, ell_spmv_T
+    launched.  Launch counts as in phase 4.
+ 6. one JSON line listing every ported kernel (launches: the sum over
+    the runs of phases 4, 5b and 5c), the card's name and power limit,
+    and the `ok` line last.
 
 The script imports nothing of JAX or of calibr8_tpu.  Kernel builds go to
 calibr8_tpu_torch/_build/.
@@ -75,6 +83,25 @@ J_REF_N32_STEP1 = 9.090906938095302e-04
 # 4.944628172944518e-03 (832 s).
 J_REF_HILL_N32 = 1.8702109654563982e-03
 J_REF_PLANE_STRESS_H004 = 7.079424310919638e-03
+
+# dJ/dp of the two full-width adjoint decks (adjoint_deck("bench"),
+# adjoint_deck("hill") below), canonical coordinates, from calibr8_tpu (JAX
+# 0.9.0) on the 8-core CPU of the machine with the card: chip_reference.py
+# adjoint, AdjointObjective.gradient with the default LinearCfg (GMRES +
+# block Gauss-Seidel on the EBE operator, tol 1e-8, 600 iterations), at the
+# decks' parameters.  Its adjoint relative residuals: steps 2, 1
+# 8.91e-05, 4.53e-05 (bench, primal 223 s, adjoint 104 s) and 4.82e-03,
+# 2.46e-03 (hill, 391 s, 89 s).
+G_REF_N32 = {
+    "body/E": -0.00035812580149246847, "body/nu": -0.00039393833293960046,
+    "body/K": 5.50962830303721e-05, "body/Y": 0.0003030289456029175,
+}
+G_REF_HILL_N32 = {
+    "body/E": -0.0003692167601930235, "body/nu": -0.00037353152717606325,
+    "body/Y": 0.0003619588017463349, "body/R00": 1.0362846637154069e-06,
+    "body/R11": 0.0003764461621321883, "body/R01": 1.0438138211788746e-09,
+    "body/S": 7.283840090641543e-06, "body/D": 7.094191925924717e-06,
+}
 
 LR_TOL = {
     "nonlinear max iters": 500,
@@ -134,6 +161,25 @@ def hill_deck(n: int) -> dict:
     lr = deck["residuals"]["local residual"]
     lr["type"] = "small_hill"
     lr["materials"] = {"body": {**HILL2D, "R02": 1.0, "R12": 1.0}}
+    return deck
+
+
+ADJOINT_ACTIVE = {
+    "bench": ("E", "nu", "K", "Y"),
+    "hill": ("E", "nu", "Y", "S", "D", "R00", "R11", "R01"),
+}
+
+
+def adjoint_deck(name: str) -> dict:
+    """The full-width deck `name` (the bench deck or hill_deck(32)) with an
+    `inverse` sublist: the parameters of ADJOINT_ACTIVE[name] active over
+    [0.8, 1.2] times their deck values."""
+    from calibr8_tpu_torch.profile_primal import bench_deck
+
+    deck = bench_deck(32) if name == "bench" else hill_deck(32)
+    mats = deck["residuals"]["local residual"]["materials"]["body"]
+    deck["inverse"] = {"materials": {"body": {
+        k: [0.8 * mats[k], 1.2 * mats[k]] for k in ADJOINT_ACTIVE[name]}}}
     return deck
 
 
@@ -206,6 +252,8 @@ KERNELS = {
                    "calibr8_tpu/fem/pallas_matvec.py:49"),
     "ell_spmv": ("calibr8_tpu_torch/csrc/ell_spmv.cu",
                  "calibr8_tpu/solve/ellpack.py:491"),
+    "ell_spmv_T": ("calibr8_tpu_torch/csrc/ell_spmv_T.cu",
+                   "calibr8_tpu/solve/ellpack.py:456"),
 }
 LIMITS = {"float64": 1e-12, "float32": 1e-5}
 
@@ -368,27 +416,7 @@ def phase_kernels(mesh, results):
         ms = time_ms(lambda: ell_spmv(A_T, nbr_T, v, d), 30)
         pms = time_ms(lambda: ell_spmv_plain(A_T, nbr_T, v, d), 10)
         # the same matrix as torch.sparse CSR (built once, not timed)
-        nb = nbr_T.long()
-        valid = nb < N  # (K, N)
-        node = torch.arange(N, device=DEVICE)
-
-        def dof(nodes, j):
-            return nodes * d + j if j < d else N * d + nodes
-
-        rows, cols, vals = [], [], []
-        for i in range(ndpn):
-            for j in range(ndpn):
-                rn = node[None, :].expand(K, N)[valid]
-                cn = nb[valid]
-                rows.append(dof(rn, i))
-                cols.append(dof(cn, j))
-                vals.append(A_T[:, i, j, :][valid])
-        coo = torch.sparse_coo_tensor(
-            torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals), (n_dofs, n_dofs)
-        ).coalesce()
-        csr = coo.to_sparse_csr()
-        del coo, rows, cols, vals
-        nnz_slots = int(valid.sum())
+        csr, nnz_slots = ell_csr(A_T, nbr_T, d, n_dofs)
         lms = time_ms(lambda: torch.mv(csr, v), 30)
         err_lib = rel_err(torch.mv(csr, v), yp)[0]
         del csr
@@ -403,9 +431,88 @@ def phase_kernels(mesh, results):
             log(f"FAIL ell_spmv {dn}: rel err {err:.3e} (limit {lim:.0e})")
             ok = False
         results[("ell_spmv", dn)] = rec
+
+        # -- kernel 3b: ELL SpMV transposed, and the transposed operator --
+        bc_dofs = prob.dbcs.arrays(1.0, 1)[0]
+        ok &= check_ell_spmv_T("cube n=32 small_J2", disc, J_T, out_k[1].diagonal(0, 0, 1),
+                               bc_dofs, results)
         del prob, disc, J_T, A_T, out_k, out_p
         torch.cuda.empty_cache()
     return ok
+
+
+def ell_csr(A_T, nbr_T, d: int, n_dofs: int, transpose: bool = False):
+    """(torch.sparse CSR of A, or of A^T, from the node-block ELL matrix;
+    the number of filled slots)."""
+    K, ndpn, _, N = A_T.shape
+    nb = nbr_T.long()
+    valid = nb < N  # (K, N)
+    node = torch.arange(N, device=A_T.device)
+
+    def dof(nodes, j):
+        return nodes * d + j if j < d else N * d + nodes
+
+    rows, cols, vals = [], [], []
+    for i in range(ndpn):
+        for j in range(ndpn):
+            rows.append(dof(node[None, :].expand(K, N)[valid], i))
+            cols.append(dof(nb[valid], j))
+            vals.append(A_T[:, i, j, :][valid])
+    rc = [torch.cat(rows), torch.cat(cols)]
+    if transpose:
+        rc.reverse()
+    coo = torch.sparse_coo_tensor(torch.stack(rc), torch.cat(vals), (n_dofs, n_dofs)).coalesce()
+    return coo.to_sparse_csr(), int(valid.sum())
+
+
+def check_ell_spmv_T(label, disc, J_T, diag_e, bc_dofs, results):
+    """Kernel 3b against its plain version on disc's shapes (time, bound,
+    the torch.sparse CSR mv of A^T as the library yardstick), and the whole
+    transposed operator EllOperator(transpose=True), Dirichlet rows
+    included, against the forward operator assembled from the transposed
+    element blocks.  diag_e (E, nde): the element Jacobians' diagonals."""
+    from calibr8_tpu_torch.solve.ellpack import (
+        EllOperator, assemble_ell_T, build_ell_maps, ell_spmv_T, ell_spmv_T_plain,
+    )
+
+    dn = str(disc.dtype).split(".")[1]
+    w = 4 if disc.dtype == torch.float32 else 8
+    lim = LIMITS[dn]
+    n_dofs, d = disc.n_dofs, disc.spec.dim
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    v = torch.randn(n_dofs, generator=gen, device=DEVICE, dtype=disc.dtype)
+    A_T = assemble_ell_T(J_T, disc)
+    nbr_T = build_ell_maps(disc)["nbr_T"]
+    K, ndpn, _, N = A_T.shape
+    yk = ell_spmv_T(A_T, nbr_T, v, d)
+    yp = ell_spmv_T_plain(A_T, nbr_T, v, d)
+    torch.cuda.synchronize()
+    err, aerr = rel_err(yk, yp)
+    ms = time_ms(lambda: ell_spmv_T(A_T, nbr_T, v, d), 30)
+    pms = time_ms(lambda: ell_spmv_T_plain(A_T, nbr_T, v, d), 10)
+    csr, nnz_slots = ell_csr(A_T, nbr_T, d, n_dofs, transpose=True)
+    lms = time_ms(lambda: torch.mv(csr, v), 30)
+    err_lib = rel_err(torch.mv(csr, v), yp)[0]
+    del csr
+    # the A_T blocks of the filled slots (the kernel skips the pad slots'
+    # blocks), all of nbr_T and x read once, y written once
+    nbytes = nnz_slots * ndpn * ndpn * w + K * N * 4 + 2 * n_dofs * w
+    b_ms, b_by = bound(nbytes, 2.0 * ndpn * ndpn * nnz_slots, dn)
+    diag = torch.zeros(n_dofs, dtype=disc.dtype, device=DEVICE).index_add_(
+        0, disc.edofs.reshape(-1), diag_e.reshape(-1))
+    op_err = rel_err(EllOperator(disc, J_T, diag, bc_dofs, transpose=True)(v),
+                     EllOperator(disc, J_T.transpose(0, 1).contiguous(), diag, bc_dofs)(v))[0]
+    good = err <= lim and op_err <= lim
+    rec = dict(kernel="ell_spmv_T", case=label, dtype=dn, rel_err=err, max_abs_err=aerr,
+               operator_rel_err=op_err, K=K, ndpn=ndpn, filled_slots=nnz_slots, ms=ms,
+               plain_ms=pms, library_ms=lms, library_rel_err=err_lib, bound_ms=b_ms,
+               bound_by=b_by, limit=lim, ok=good)
+    log(json.dumps(rec))
+    if not good:
+        log(f"FAIL ell_spmv_T {label} {dn}: rel err {err:.3e}, operator {op_err:.3e} "
+            f"(limit {lim:.0e})")
+    results[("ell_spmv_T", label, dn)] = rec
+    return good
 
 
 def partial_yield_state(disc, nxi, scale, seed=0):
@@ -495,11 +602,14 @@ def check_implicit(label, prob, scale, results):
     return ok, out_k[1]
 
 
-def check_operators_at(label, disc, J_T, results):
-    """The EBE and ELL kernels against their plain versions on disc's
-    shapes (displacement only: nde = 6, ndpn = 2)."""
+def check_operators_at(label, disc, J_T, bc_dofs, results):
+    """The EBE and both ELL kernels against their plain versions on disc's
+    shapes (displacement only: nde = 6, ndpn = 2); 3b with its bound,
+    library time and transposed operator, as at n=32."""
     from calibr8_tpu_torch.fem.ebe_matvec import ebe_matvec, ebe_matvec_plain
-    from calibr8_tpu_torch.solve.ellpack import assemble_ell_T, build_ell_maps, ell_spmv, ell_spmv_plain
+    from calibr8_tpu_torch.solve.ellpack import (
+        assemble_ell_T, build_ell_maps, ell_spmv, ell_spmv_plain,
+    )
 
     dn = str(disc.dtype).split(".")[1]
     lim = LIMITS[dn]
@@ -521,7 +631,8 @@ def check_operators_at(label, disc, J_T, results):
                    ms=time_ms(fk, 30), plain_ms=time_ms(fp, 10), limit=lim, ok=good)
         log(json.dumps(rec))
         results[(name, label, dn)] = rec
-    return ok
+    del A_T
+    return ok & check_ell_spmv_T(label, disc, J_T, J_T.diagonal(0, 0, 1), bc_dofs, results)
 
 
 def phase_implicit(meshes, results):
@@ -552,7 +663,8 @@ def phase_implicit(meshes, results):
             good, J_T = check_implicit(label, prob, scale, results)
             ok &= good
             if not prob.disc.spec.mixed:
-                ok &= check_operators_at(label, prob.disc, J_T, results)
+                ok &= check_operators_at(label, prob.disc, J_T, prob.dbcs.arrays(1.0, 1)[0],
+                                         results)
             del prob, J_T
             torch.cuda.empty_cache()
     return ok
@@ -645,6 +757,111 @@ def full_width_runs(meshes):
     ]
 
 
+def adjoint_objective(deck, mesh=None, linear_cfg=None):
+    """The CLI's `pdeco` objective on the card: (problem, adjoint,
+    objective, x0 at the deck's parameters)."""
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.opt.objective import ActiveParams, AdjointObjective
+    from calibr8_tpu_torch.problem import Problem
+    from calibr8_tpu_torch.solve.adjoint import Adjoint
+    from calibr8_tpu_torch.solve.linear import LinearCfg
+
+    spec = load_deck(copy.deepcopy(deck))
+    prob = Problem(spec, mesh=mesh, device=DEVICE, dtype=torch.float64)
+    adj = Adjoint(prob.assembler, prob.qoi, prob.dbcs, linear_cfg or LinearCfg())
+    active = ActiveParams.from_inverse_spec(spec.inverse, prob.disc.elem_set_names,
+                                            prob.model.param_names)
+    obj = AdjointObjective(prob, adj, active)
+    return prob, adj, obj, active.to_canonical(active.extract(prob.params0))
+
+
+def phase_adjoint_fd():
+    """Phase 5a: the notch2D small_J2 8-step adjoint deck
+    (tests/test_adjoint_gradient.py:55-69) on the card: the adjoint
+    gradient against finite differences, log10 error drop > 6.
+
+    The quotients at h <= 1e-5 need J to repeat to ~1e-17 between
+    nearby parameter points, as it does on the CPU.  On the card the
+    atomic adds of index_add_ (the residual's scatter) sum in a new order
+    in every solve, and J then varies by ~3e-15, which caps the drop near
+    6; so this phase runs with PyTorch's deterministic algorithms, and
+    the record lists the operations that had none."""
+    import warnings
+
+    from calibr8_tpu_torch.opt.objective import fd_gradient_check
+
+    deck = copy.deepcopy(GOLDENS["notch2D_small_J2"][0])
+    deck["inverse"] = {"materials": {"body": {"E": [800.0, 1200.0], "K": [50.0, 150.0],
+                                              "Y": [5.0, 15.0]}}}
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, _, obj, x0 = adjoint_objective(deck)
+            g = obj.gradient(x0)
+            drop, errs = fd_gradient_check(obj.value, g, x0, num_steps=11)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondeterministic = sorted({str(w.message).split(".")[0] for w in caught
+                               if "deterministic" in str(w.message)})
+    ok = bool(np.all(np.isfinite(g)) and np.any(g != 0.0) and drop > 6.0)
+    log(json.dumps(dict(adjoint_fd="notch2D h=0.12 small_J2, 8 steps", names=obj.active.names,
+                        grad=[float(v) for v in g], log10_drop=float(drop),
+                        errors=[float(e) for e in errs], limit=6.0,
+                        nondeterministic_ops=nondeterministic,
+                        seconds=time.perf_counter() - t0, ok=ok)))
+    return ok
+
+
+def phase_adjoint_full_width(name, mesh, g_ref):
+    """Phase 5b/5c: dJ/dp of a full-width deck through the objective's
+    entry points (value: the primal; gradient: the backward sweep, whose
+    transposed solves run GMRES + block Gauss-Seidel on the ELL operator,
+    i.e. ell_spmv_T), float64, held at 1e-5 (max-norm relative) to
+    calibr8_tpu's gradient g_ref.  Launch counts are set to 0 just before
+    and read just after.  Returns (ok, counts)."""
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.utils import timers
+
+    t0 = time.perf_counter()
+    prob, adj, obj, x0 = adjoint_objective(adjoint_deck(name), mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    timers.reset()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    J = obj.value(x0)
+    torch.cuda.synchronize()
+    primal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = obj.gradient(x0)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    names = obj.active.names
+    ref = np.asarray([g_ref[k] for k in names])
+    rel = float(np.abs(g - ref).max() / np.abs(ref).max())
+    steps = [dict(step=s["step"], relres=s["relres"], krylov_iterations=s["krylov_iters"])
+             for s in adj.step_info]
+    summ = timers.summary()
+    rec = dict(adjoint=name, n_elem=prob.disc.n_elem, n_dofs=prob.disc.n_dofs, names=names,
+               grad=[float(v) for v in g], grad_ref=ref.tolist(), rel_err=rel, limit=1e-5, J=J,
+               setup_s=setup_s, primal_s=primal_s, sweep_s=sweep_s, steps=steps,
+               phases={k: dict(count=v["count"], total_s=v["total"]) for k, v in summ.items()
+                       if k.startswith("adjoint/")},
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+    log(json.dumps(rec))
+    ok = (rel <= 1e-5 and bool(np.all(np.isfinite(g)))
+          and all(np.isfinite(s["relres"]) and s["relres"] <= 0.5 for s in steps)
+          and counts["ell_spmv_T"] > 0)
+    if not ok:
+        log(f"FAIL adjoint {name}: gradient rel err {rel:.3e} (limit 1e-5), steps {steps}, "
+            f"launches {counts}")
+    return ok, counts
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -692,10 +909,24 @@ def main(argv) -> int:
             return 1
         counts = {k: counts.get(k, 0) + v for k, v in c.items()}
 
+    ok = phase_adjoint_fd()
+    log(f"phase adjoint, finite differences: {'ok' if ok else 'FAILED'} "
+        f"({time.perf_counter() - t_start:.0f} s)")
+    if not ok:
+        return 1
+    for name, g_ref in (("bench", G_REF_N32), ("hill", G_REF_HILL_N32)):
+        ok, c = phase_adjoint_full_width(name, meshes["cube32"], g_ref)
+        log(f"phase adjoint, full width, {name}: {'ok' if ok else 'FAILED'} "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        if not ok:
+            return 1
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+
     line = []
     timed = {"fused_assembly": ("fused_assembly", "float64"),
              "implicit_assembly": ("implicit_assembly", "cube n=32 small_hill", "float64"),
-             "ebe_matvec": ("ebe_matvec", "float64"), "ell_spmv": ("ell_spmv", "float64")}
+             "ebe_matvec": ("ebe_matvec", "float64"), "ell_spmv": ("ell_spmv", "float64"),
+             "ell_spmv_T": ("ell_spmv_T", "cube n=32 small_J2", "float64")}
     for name, (src, repl) in KERNELS.items():
         r = results[timed[name]]
         line.append(dict(name=name, route="cuda", source=src, replaces=repl,

@@ -1,6 +1,6 @@
-"""The EBE matvec and the node-block ELL operator (plain versions: the CPU
-path, and the oracles of the CUDA kernels on the card) against
-calibr8_tpu, Dirichlet rows included.
+"""The EBE matvec and the node-block ELL operator, forward and transposed
+(plain versions: the CPU path, and the oracles of the CUDA kernels on
+the card) against calibr8_tpu, Dirichlet rows included.
 
 Tolerance 1e-13 relative to max|y|: the same float64 products summed in
 another order."""
@@ -24,6 +24,7 @@ from calibr8_tpu_torch.fem.ebe_matvec import ebe_matvec, ebe_matvec_plain
 from calibr8_tpu_torch.problem import Problem
 from calibr8_tpu_torch.solve.ellpack import (
     EllOperator, assemble_ell_T, build_ell_maps, ell_maps_from_conn, ell_spmv, ell_spmv_plain,
+    ell_spmv_T, ell_spmv_T_plain,
 )
 from calibr8_tpu.models.twin_cases import HILL2D
 from tests.decks import BCS_2D, BCS_3D, J2_MAT, NOTCH2D, make_deck
@@ -37,6 +38,8 @@ MESHES = {
                              "mechanics_plane_stress"),
 }
 RTOL = 1e-13
+# the ELL apply and its transpose (kernels 3a and 3b)
+DIRECTIONS = {"forward": (ell_spmv, ell_spmv_plain), "transpose": (ell_spmv_T, ell_spmv_T_plain)}
 
 
 def _close(a, b, rtol=RTOL):
@@ -97,18 +100,24 @@ def test_ell_maps_match_jax_dense_packing(system, monkeypatch):
         np.testing.assert_array_equal(np.asarray(mj[k]), mt[k])
 
 
-def test_ell_operator_matches_jax(system):
+@pytest.mark.parametrize("direction", list(DIRECTIONS))
+def test_ell_operator_matches_jax(system, direction):
     """The port's ELL assembly + plain apply against calibr8_tpu's
-    EllOperator CPU path (assemble_ell) and its EBE matvec, same J."""
+    EllOperator CPU path (assemble_ell) and its EBE matvec, same J.  The
+    transposed operator (A^T, then the Dirichlet rows) assembles the
+    forward J and applies ell_spmv_T's plain version; calibr8_tpu's
+    transposes the element blocks first."""
     J_T, diag, bc, v = system["J_T"], system["diag"], system["bc"], system["v"]
     jd, td = system["jp"].disc, system["tp"].disc
+    transpose = direction == "transpose"
     J_ef = jnp.asarray(J_T.permute(2, 0, 1).numpy())
     jdiag, jbc = jnp.asarray(diag.numpy()), jnp.asarray(bc.numpy(), jnp.int32)
-    y_jax_ell = jax_ellpack.EllOperator(jd, J_ef, jdiag, jbc)(jnp.asarray(v))
+    y_jax_ell = jax_ellpack.EllOperator(jd, J_ef, jdiag, jbc, transpose=transpose)(jnp.asarray(v))
+    J_op = J_ef.swapaxes(1, 2) if transpose else J_ef
     y_jax_ebe = jax_apply_dbcs_matvec(
-        jax_assembly.ebe_matvec_disc(J_ef, jd, jnp.asarray(v)), jdiag, jnp.asarray(v), jbc
+        jax_assembly.ebe_matvec_disc(J_op, jd, jnp.asarray(v)), jdiag, jnp.asarray(v), jbc
     )
-    y = EllOperator(td, J_T, diag, bc)(torch.tensor(v)).numpy()
+    y = EllOperator(td, J_T, diag, bc, transpose=transpose)(torch.tensor(v)).numpy()
     _close(y, y_jax_ell)
     _close(y, y_jax_ebe)
 
@@ -140,9 +149,11 @@ def test_ell_assembly_is_the_assembled_matrix(system):
     _close(ref.numpy(), A_jax)
 
 
-def test_ell_wrapper_is_plain_on_cpu(system):
+@pytest.mark.parametrize("direction", list(DIRECTIONS))
+def test_ell_wrapper_is_plain_on_cpu(system, direction):
+    wrapper, plain = DIRECTIONS[direction]
     td = system["tp"].disc
     A_T = assemble_ell_T(system["J_T"], td)
     nbr_T = build_ell_maps(td)["nbr_T"]
     v = torch.tensor(system["v"])
-    assert torch.equal(ell_spmv(A_T, nbr_T, v, td.spec.dim), ell_spmv_plain(A_T, nbr_T, v, td.spec.dim))
+    assert torch.equal(wrapper(A_T, nbr_T, v, td.spec.dim), plain(A_T, nbr_T, v, td.spec.dim))

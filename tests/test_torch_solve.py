@@ -112,6 +112,10 @@ SOLVE_CASES = {
     "gmres_ell_jacobi": (dict(method="gmres", tol=1e-10, max_iters=400, preconditioner="jacobi"), False),
     "gmres_ell_block_gs_transpose": (dict(method="gmres", tol=1e-10, max_iters=400), True),
     "cg_5_iterations": (dict(method="cg", tol=1e-10, max_iters=5), False),
+    # the adjoint's refinement budget (refine_iters more restart cycles),
+    # with too few iterations to converge
+    "gmres_ell_block_gs_transpose_10_refine_2": (
+        dict(method="gmres", tol=1e-10, max_iters=10, restart=10, refine_iters=2), True),
 }
 
 
@@ -122,8 +126,9 @@ def test_solve_info_matches_jax(system, case):
     matrix unless operator="ebe"; both use the same preconditioner.
     Dense and GMRES: both reach the tolerance with the same Krylov
     iteration count, x to 1e-10 of max|x| (1e-15 seen).  CG (the mixed
-    system is indefinite, so 5 iterations, not convergence): the same
-    iterate to 1e-10."""
+    system is indefinite, so 5 iterations, not convergence) and the
+    refinement case (a budget too small to converge): the same iterate
+    to 1e-10."""
     fields, transpose = SOLVE_CASES[case]
     J_e, jd, diag, b, bc = _jax_args(system)
     x_j, rr_j, k_j = jax_linear.solve_info(jax_linear.LinearCfg(**fields), J_e, jd, diag, b, bc,
@@ -132,9 +137,28 @@ def test_solve_info_matches_jax(system, case):
                                        system["tp"].disc, system["diag"], system["b"],
                                        system["bc"], transpose=transpose, return_iters=True)
     x_j = np.asarray(x_j)
-    if fields["method"] != "cg":
+    if fields["method"] != "cg" and "refine_iters" not in fields:
         assert rr_t <= 1e-10 and float(rr_j) <= 1e-10
     assert k_t == int(k_j)
+    assert np.abs(x_t.numpy() - x_j).max() <= 1e-10 * np.abs(x_j).max()
+
+
+@pytest.mark.parametrize("system", ["notch2D_plane_stress"], indirect=True)
+def test_cg_refinement_matches_jax(system):
+    """CG and refine_iters correction solves, each 5 iterations, on the
+    displacement-only system (the mixed ones are indefinite, and CG's
+    iterates there grow until rounding decides them): the same iterate
+    and relative residual to 1e-10."""
+    fields = dict(method="cg", tol=1e-10, max_iters=5, refine_iters=2)
+    x_j, rr_j = jax_linear.solve_info(jax_linear.LinearCfg(**fields), *_jax_args(system))
+    x_t, rr_t = linear.solve_info(linear.LinearCfg(**fields), system["J_T"], system["tp"].disc,
+                                  system["diag"], system["b"], system["bc"])
+    x_j = np.asarray(x_j)
+    x_5, rr_5 = linear.solve_info(linear.LinearCfg(method="cg", tol=1e-10, max_iters=5),
+                                  system["J_T"], system["tp"].disc, system["diag"], system["b"],
+                                  system["bc"])
+    assert rr_t < rr_5
+    assert abs(rr_t - float(rr_j)) <= 1e-10 * float(rr_j)
     assert np.abs(x_t.numpy() - x_j).max() <= 1e-10 * np.abs(x_j).max()
 
 
