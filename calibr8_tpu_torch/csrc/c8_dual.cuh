@@ -10,7 +10,8 @@
 // also builds with a host C++ compiler for checking without a card.
 //
 // Tangent rules follow JAX's, which the reference port was checked
-// against: sqrt' = g * (0.5 / sqrt(x)); exp' = g * exp(x);
+// against: sqrt' = g * (0.5 / sqrt(x)); exp' = g * exp(x); log' = g / x;
+// pow(x, n)' = g * (n x^(n-1)) for a constant float n;
 // (a/b)' = a'/b - a b'/b^2; max0(f) = max(f, 0) and maxc(f, c) give each
 // side half the tangent at a tie.
 #pragma once
@@ -168,6 +169,33 @@ C8_HD Dual<T, N> c8_exp(const Dual<T, N>& a) {
   r.v = c8_exp(a.v);
 #pragma unroll
   for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * r.v;
+  return r;
+}
+
+C8_HD float c8_log(float x) { return logf(x); }
+C8_HD double c8_log(double x) { return log(x); }
+
+template <typename T, int N>
+C8_HD Dual<T, N> c8_log(const Dual<T, N>& a) {
+  Dual<T, N> r;
+  r.v = c8_log(a.v);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] / a.v;
+  return r;
+}
+
+C8_HD float c8_pow(float x, float n) { return powf(x, n); }
+C8_HD double c8_pow(double x, double n) { return pow(x, n); }
+
+// x^n with a constant exponent n (a material parameter): the tangent is
+// x's times n x^(n-1), JAX's rule for a float exponent
+template <typename T, int N>
+C8_HD Dual<T, N> c8_pow(const Dual<T, N>& a, T n) {
+  Dual<T, N> r;
+  r.v = c8_pow(a.v, n);
+  const T jac = n * c8_pow(a.v, n - T(1));
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * jac;
   return r;
 }
 

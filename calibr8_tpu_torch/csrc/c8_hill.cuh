@@ -12,11 +12,15 @@
 // one body serves the local Newton (seeds over xi) and the condensation
 // (seeds over [xi; grad_u]).
 //
-// A model provides: D, NXI, NPAR, MIXED; residual() -> path, the
+// A model provides: D, NXI, NPAR, MIXED, FINITE (false here: small
+// strain), NEWTON_ITERS (the local Newton's cap); first_guess(), the
+// local Newton's start (xi_prev here); residual() -> path, the
 // branchwise local residual C at the branch the current xi selects
-// (pathfn: f >= -abs_tol); stress(), the deviatoric Cauchy stress
-// (mixed: the pressure is subtracted by the caller) or the full in-plane
-// Cauchy stress (plane stress); and for mixed models hydro() and psf().
+// (pathfn: f >= -abs_tol), given grad_u and the frozen previous grad_u
+// (which the small-strain models do not read); stress(), the deviatoric
+// Cauchy stress (mixed: the pressure is subtracted by the caller) or the
+// full in-plane Cauchy stress (plane stress); and for mixed models
+// hydro() and psf().
 #pragma once
 
 #include "c8_element.cuh"
@@ -96,11 +100,24 @@ C8_HD S small_hydro(const S gu[D][D], const T* par) {
 template <typename T>
 C8_HD T small_psf(const T* par) { return par[0] / (T(3) * (T(1) - T(2) * par[1])); }
 
+// what the small-strain twins share: the local Newton starts from xi_prev
+template <typename T, int D_, int NXI_>
+struct SmallStrainTwin {
+  static constexpr int D = D_, NXI = NXI_, NEWTON_ITERS = 16;
+  static constexpr bool FINITE = false;
+
+  C8_HD static void first_guess(const T* xip, const T gu[D_][D_], const T gup[D_][D_],
+                                const T* par, T* xi) {
+#pragma unroll
+    for (int k = 0; k < NXI_; ++k) xi[k] = xip[k];
+  }
+};
+
 // small_hill (models/batched.py:471-558): xi = [pstrain voigt (6), alpha];
 // params [E, nu, Y, R00, R11, R22, R01, R02, R12, S, D]
 template <typename T>
-struct SmallHill {
-  static constexpr int D = 3, NXI = 7, NPAR = 11;
+struct SmallHill : SmallStrainTwin<T, 3, 7> {
+  static constexpr int NPAR = 11;
   static constexpr bool MIXED = true;
 
   template <typename S>
@@ -116,8 +133,8 @@ struct SmallHill {
   C8_HD static T psf(const T* par) { return small_psf(par); }
 
   template <typename S>
-  C8_HD static int residual(const S* xi, const T* xip, const S gu[3][3], const T* par,
-                            T abs_tol, S* C) {
+  C8_HD static int residual(const S* xi, const T* xip, const S gu[3][3], const T gup[3][3],
+                            const T* par, T abs_tol, S* C) {
     const T mu = shear_modulus(par);
     const HillCoef<T> hc(par[3], par[4], par[5], par[6], par[7], par[8]);
     S s[3][3];
@@ -148,12 +165,12 @@ struct SmallHill {
 // the two plane variants: xi = [pstrain voigt (3), alpha]; params
 // [E, nu, Y, S, D, R00, R11, R22, R01], R02 = R12 = 1
 template <typename T, typename Self>
-struct SmallHill2D {
-  static constexpr int D = 2, NXI = 4, NPAR = 9;
+struct SmallHill2D : SmallStrainTwin<T, 2, 4> {
+  static constexpr int NPAR = 9;
 
   template <typename S>
-  C8_HD static int residual(const S* xi, const T* xip, const S gu[2][2], const T* par,
-                            T abs_tol, S* C) {
+  C8_HD static int residual(const S* xi, const T* xip, const S gu[2][2], const T gup[2][2],
+                            const T* par, T abs_tol, S* C) {
     const T mu = shear_modulus(par);
     const HillCoef<T> hc(par[5], par[6], par[7], par[8], T(1), T(1));
     S s00, s11, s01, szz;

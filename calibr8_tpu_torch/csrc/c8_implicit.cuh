@@ -1,15 +1,19 @@
 // Per-element assembly in the implicit kernel mode: the local Newton for
 // xi, the residual rows, and the statically condensed Jacobian
 // J = dR/dx - dR/dxi (dC/dxi)^-1 dC/dx (reference evaluations.cpp:112).
-// One call handles one element; implicit_assembly.cu runs it in one
-// thread per element.  The models are the implicit twins of c8_hill.cuh.
+// One call handles one element; implicit_assembly_kernel below runs it in
+// one thread per element (launched from implicit_assembly.cu for the
+// small-strain twins of c8_hill.cuh and the finite-deformation twins of
+// c8_hyper.cuh).
 //
 // The arithmetic follows calibr8_tpu's fused Pallas kernel in its
 // implicit mode (fem/pallas_assembly.py:242-482) and its local Newton
 // (models/batched.py:561-671), as does the port's plain version
 // (calibr8_tpu_torch/fem/fused_assembly.py), so the three agree to
 // rounding:
-//  - local Newton, at most newton_iters = 16 iterations: the branch is
+//  - local Newton from the model's first guess (xi_prev, or the elastic
+//    trial state of the finite-deformation twins), at most
+//    M::NEWTON_ITERS iterations: the branch is
 //    taken from the current xi; the lane is done once ||C|| < abs_tol
 //    (then it stops, which gives the same xi as calibr8_tpu's gated
 //    update); the step is dxi = -(dC/dxi)^-1 C, added times
@@ -27,12 +31,18 @@
 // Rows: mixed u/p with GLS stabilization and the analytic pressure
 // columns (pallas_assembly.py:423-476), or, for displacement-only specs,
 // the momentum rows times the thickness (pallas_assembly.py:299-314,
-// 402-421).  Layouts as in c8_element.cuh, with nde = npe * (d + 1)
+// 402-421).  For FINITE models (pallas_assembly.py:235,299-315,423-451)
+// the momentum rows are P = sigma cof(F), times the z-stretch xi when
+// displacement only; the stabilization row (tau / det F) cof^T cof
+// grad_p depends on grad_u and carries its tangents; the pressure
+// columns go through cof(F) and M = cof^T cof / det F at the element's F.
+// x_prev is gathered as x is, into the frozen previous grad_u, for FINITE
+// models only.  Layouts as in c8_element.cuh, with nde = npe * (d + 1)
 // (mixed) or npe * d; iters (E,) int32, when not null, gets each
 // element's number of Newton updates.
 #pragma once
 
-#include "c8_hill.cuh"
+#include "c8_hyper.cuh"
 
 namespace c8 {
 
@@ -67,7 +77,8 @@ C8_HD bool finite(T x) {
 
 template <typename T, template <typename> class Model>
 C8_HD void implicit_element(
-    int e, int E, const T* __restrict__ x, const int* __restrict__ edofs_T,
+    int e, int E, const T* __restrict__ x, const T* __restrict__ x_prev,
+    const int* __restrict__ edofs_T,
     const T* __restrict__ xi_prev, const T* __restrict__ gN_T,
     const T* __restrict__ detJ, const T* __restrict__ h,
     const T* __restrict__ params, const int* __restrict__ es_ids,
@@ -76,9 +87,9 @@ C8_HD void implicit_element(
     int* __restrict__ path_out, int* __restrict__ fail_out, int* __restrict__ iters_out) {
   typedef Model<T> M;
   constexpr int D = M::D, NPE = D + 1, NG = D * D, NXI = M::NXI, NPAR = M::NPAR;
-  constexpr bool MIXED = M::MIXED;
+  constexpr bool MIXED = M::MIXED, FINITE = M::FINITE;
   constexpr int NDPN = MIXED ? D + 1 : D, NDE = NPE * NDPN, NV = NXI + NG;
-  constexpr int NEWTON_ITERS = 16;
+  constexpr int NEWTON_ITERS = M::NEWTON_ITERS;
 
   // ---- gather ----
   T u[NPE][D], p[NPE], gN[NPE][D];
@@ -98,23 +109,32 @@ C8_HD void implicit_element(
 #pragma unroll
   for (int k = 0; k < NXI; ++k) xip[k] = xi_prev[e * NXI + k];
 
-  // ---- kinematics: grad_u[i][j] = sum_n u[n][i] gN[n][j] ----
-  T gu[D][D];
+  // ---- kinematics: grad_u[i][j] = sum_n u[n][i] gN[n][j]; grad_u_prev
+  //      from x_prev alike (FINITE models only; zero otherwise) ----
+  T up[NPE][D];
+#pragma unroll
+  for (int n = 0; n < NPE; ++n)
+#pragma unroll
+    for (int c = 0; c < D; ++c) up[n][c] = FINITE ? x_prev[edofs_T[(n * NDPN + c) * E + e]] : T(0);
+  T gu[D][D], gup[D][D];
 #pragma unroll
   for (int i = 0; i < D; ++i)
 #pragma unroll
     for (int j = 0; j < D; ++j) {
-      T acc = u[0][i] * gN[0][j];
+      T acc = u[0][i] * gN[0][j], accp = up[0][i] * gN[0][j];
 #pragma unroll
-      for (int n = 1; n < NPE; ++n) acc = acc + u[n][i] * gN[n][j];
+      for (int n = 1; n < NPE; ++n) {
+        acc = acc + u[n][i] * gN[n][j];
+        accp = accp + up[n][i] * gN[n][j];
+      }
       gu[i][j] = acc;
+      gup[i][j] = accp;
     }
 
   // ---- local Newton, tangents over xi ----
   typedef Dual<T, NXI> SX;
   T xi[NXI];
-#pragma unroll
-  for (int k = 0; k < NXI; ++k) xi[k] = xip[k];  // first guess: xi_prev
+  M::first_guess(xip, gu, gup, par, xi);
   SX gux[D][D];
 #pragma unroll
   for (int i = 0; i < D; ++i)
@@ -128,7 +148,7 @@ C8_HD void implicit_element(
       xs[k] = SX(xi[k]);
       xs[k].d[k] = T(1);
     }
-    M::residual(xs, xip, gux, par, abs_tol, C);
+    M::residual(xs, xip, gux, gup, par, abs_tol, C);
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;
@@ -168,7 +188,7 @@ C8_HD void implicit_element(
   int path;
   {
     SV C[NXI];
-    path = M::residual(xv, xip, gv, par, abs_tol, C);  // pathfn at the final xi
+    path = M::residual(xv, xip, gv, gup, par, abs_tol, C);  // pathfn at the final xi
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;
@@ -221,6 +241,43 @@ C8_HD void implicit_element(
     for (int i = 0; i < D; ++i) sigma[i][i] = sigma[i][i] - p_ip;
     rp_const = (-(M::hydro(xv, gv, par) / psf) * inv_npe) * wdv0;
   }
+  // FINITE: sigma becomes P = sigma cof(F) (times the z-stretch when
+  // displacement only); the stabilization flux (tau / det F) cof^T cof
+  // grad_p; cof0 and M0 = cof^T cof / det F at the element's F for the
+  // pressure columns
+  SV stab_gp[D];
+  T cof0[D][D], M0[D][D];
+  if constexpr (FINITE) {
+    SV F[D][D], cof[D][D], P[D][D];
+    def_grad<D>(gv, F);
+    cofactor<D>(F, cof);
+    mat_mul<D>(sigma, cof, P);
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        if constexpr (MIXED) sigma[i][j] = P[i][j];
+        else sigma[i][j] = xv[M::Z_STRETCH] * P[i][j];
+        cof0[i][j] = cof[i][j].v;
+      }
+    if constexpr (MIXED) {
+      SV Mst[D][D];
+      mat_mul_at<D>(cof, cof, Mst);
+      const SV dF = det<D>(F);
+      const SV sc = tau / dF;
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        SV acc = Mst[j][0] * grad_p[0];
+#pragma unroll
+        for (int k = 1; k < D; ++k) acc = acc + Mst[j][k] * grad_p[k];
+        stab_gp[j] = sc * acc;
+      }
+#pragma unroll
+      for (int i = 0; i < D; ++i)
+#pragma unroll
+        for (int j = 0; j < D; ++j) M0[i][j] = Mst[i][j].v / dF.v;
+    }
+  }
 
   // ---- rows of each node: R, the condensed row K, J = K . grad_N plus
   //      the analytic pressure columns ----
@@ -235,12 +292,19 @@ C8_HD void implicit_element(
         for (int j = 1; j < D; ++j) acc = acc + sigma[ci][j] * gN[n][j];
         row = MIXED ? acc * wdv0 : (acc * wdv0) * thick;
       } else {
-        T stab_n = (tau * grad_p[0]) * gN[n][0];
-#pragma unroll
-        for (int j = 1; j < D; ++j) stab_n = stab_n + (tau * grad_p[j]) * gN[n][j];
         T r_p1 = T(0);
         for (int qq = 0; qq < q.npts; ++qq) r_p1 = r_p1 + coef[qq] * q.N1[qq][n];
-        row = (rp_const - stab_n * wdv0) - r_p1;
+        if constexpr (FINITE) {
+          SV stab_n = gN[n][0] * stab_gp[0];
+#pragma unroll
+          for (int j = 1; j < D; ++j) stab_n = stab_n + gN[n][j] * stab_gp[j];
+          row = (rp_const - stab_n * wdv0) - r_p1;
+        } else {
+          T stab_n = (tau * grad_p[0]) * gN[n][0];
+#pragma unroll
+          for (int j = 1; j < D; ++j) stab_n = stab_n + (tau * grad_p[j]) * gN[n][j];
+          row = (rp_const - stab_n * wdv0) - r_p1;
+        }
       }
       T K[NG];
 #pragma unroll
@@ -265,11 +329,26 @@ C8_HD void implicit_element(
         if constexpr (MIXED) {
           T pcol;
           if (ci < D) {
-            pcol = (-inv_npe * gN[n][ci]) * wdv0;
-          } else {
-            T gg = gN[m][0] * gN[n][0];
+            if constexpr (FINITE) {
+              T cg = cof0[ci][0] * gN[n][0];
 #pragma unroll
-            for (int j = 1; j < D; ++j) gg = gg + gN[m][j] * gN[n][j];
+              for (int j = 1; j < D; ++j) cg = cg + cof0[ci][j] * gN[n][j];
+              pcol = (-inv_npe * wdv0) * cg;
+            } else {
+              pcol = (-inv_npe * gN[n][ci]) * wdv0;
+            }
+          } else {
+            T gg = T(0);
+            if constexpr (FINITE) {
+#pragma unroll
+              for (int j = 0; j < D; ++j)
+#pragma unroll
+                for (int k = 0; k < D; ++k) gg = gg + (gN[n][j] * M0[j][k]) * gN[m][k];
+            } else {
+              gg = gN[m][0] * gN[n][0];
+#pragma unroll
+              for (int j = 1; j < D; ++j) gg = gg + gN[m][j] * gN[n][j];
+            }
             pcol = (-tau * wdv0) * gg - (dJ / psf) * q.mass[n][m];
           }
           Jrow[(size_t)(m * NDPN + D) * E] = pcol;
@@ -284,3 +363,92 @@ C8_HD void implicit_element(
 }
 
 }  // namespace c8
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+
+namespace c8 {
+
+template <typename T, template <typename> class Model>
+__global__ void __launch_bounds__(128) implicit_assembly_kernel(
+    int E, const T* __restrict__ x, const T* __restrict__ x_prev,
+    const int* __restrict__ edofs_T, const T* __restrict__ xi_prev,
+    const T* __restrict__ gN_T, const T* __restrict__ detJ, const T* __restrict__ h,
+    const T* __restrict__ params, const int* __restrict__ es_ids, const Quad<T> q, T meas0,
+    T stab_half, T thick, T abs_tol, T fail_tol, T* __restrict__ R_T, T* __restrict__ J_T,
+    T* __restrict__ xi_T, int* __restrict__ path, int* __restrict__ fail,
+    int* __restrict__ iters) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  implicit_element<T, Model>(e, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params, es_ids,
+                             q, meas0, stab_half, thick, abs_tol, fail_tol, R_T, J_T, xi_T,
+                             path, fail, iters);
+}
+
+// one launch of Model's kernel on `stream`; returns the launch's
+// cudaError_t.  quad = [N1 (npts, npe) | w1 (npts) | mass (npe, npe)],
+// row-major doubles.
+template <typename T, template <typename> class Model>
+int implicit_launch(int E, const void* x, const void* x_prev, const void* edofs_T,
+                    const void* xi_prev, const void* gN_T, const void* detJ, const void* h,
+                    const void* params, const void* es_ids, const double* quad, int npts,
+                    double stab_half, double thick, double abs_tol, double fail_tol, void* R_T,
+                    void* J_T, void* xi_T, void* path, void* fail, void* iters,
+                    cudaStream_t stream) {
+  constexpr int D = Model<T>::D, NPE = D + 1;
+  Quad<T> q;
+  for (int a = 0; a < 4; ++a) {
+    q.w1[a] = T(0);
+    for (int b = 0; b < 4; ++b) q.N1[a][b] = q.mass[a][b] = T(0);
+  }
+  for (int a = 0; a < npts; ++a)
+    for (int n = 0; n < NPE; ++n) q.N1[a][n] = T(quad[a * NPE + n]);
+  for (int a = 0; a < npts; ++a) q.w1[a] = T(quad[npts * NPE + a]);
+  for (int n = 0; n < NPE; ++n)
+    for (int m = 0; m < NPE; ++m) q.mass[n][m] = T(quad[npts * NPE + npts + n * NPE + m]);
+  q.npts = npts;
+  const T meas0 = T(D == 2 ? 0.5 : 1.0 / 6.0);
+  const int block = 128;
+  const int grid = (E + block - 1) / block;
+  if (E > 0)
+    implicit_assembly_kernel<T, Model><<<grid, block, 0, stream>>>(
+        E, (const T*)x, (const T*)x_prev, (const int*)edofs_T, (const T*)xi_prev,
+        (const T*)gN_T, (const T*)detJ, (const T*)h, (const T*)params, (const int*)es_ids, q,
+        meas0, T(stab_half), T(thick), T(abs_tol), T(fail_tol), (T*)R_T, (T*)J_T, (T*)xi_T,
+        (int*)path, (int*)fail, (int*)iters);
+  return (int)cudaGetLastError();
+}
+
+// the body of the library's C entry point: `model` selects Models[model],
+// `dtype` float (0) or double (1); returns the launch's cudaError_t
+template <template <typename> class... Models>
+int implicit_entry(int device, int dtype, int model, int E, const void* x, const void* x_prev,
+                   const void* edofs_T, const void* xi_prev, const void* gN_T, const void* detJ,
+                   const void* h, const void* params, const void* es_ids, const double* quad,
+                   int npts, double stab_half, double thick, double abs_tol, double fail_tol,
+                   void* R_T, void* J_T, void* xi_T, void* path, void* fail, void* iters,
+                   void* stream) {
+  if (npts < 1 || npts > 4 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = (cudaStream_t)stream;
+  int rc = (int)cudaErrorInvalidValue, id = 0;
+  // one test per model, in order; only Models[model] launches
+  ((model == id++
+        ? (rc = dtype == 0
+                    ? implicit_launch<float, Models>(E, x, x_prev, edofs_T, xi_prev, gN_T, detJ,
+                                                     h, params, es_ids, quad, npts, stab_half,
+                                                     thick, abs_tol, fail_tol, R_T, J_T, xi_T,
+                                                     path, fail, iters, s)
+                    : implicit_launch<double, Models>(E, x, x_prev, edofs_T, xi_prev, gN_T,
+                                                      detJ, h, params, es_ids, quad, npts,
+                                                      stab_half, thick, abs_tol, fail_tol, R_T,
+                                                      J_T, xi_T, path, fail, iters, s))
+        : 0),
+   ...);
+  return rc;
+}
+
+}  // namespace c8
+
+#endif  // __CUDACC__

@@ -8,8 +8,9 @@ mechanics/global_residual.py) over the seed vector
 
     v = [xi, x_e, xp_e, xi_prev, p]     (2 nxi + 2 nde + n_params seeds)
 
-gives every block the backward step needs, and static condensation in
-trailing layout gives the condensed Jacobian:
+gives every block the backward step needs (the x_prev blocks are
+nonzero for the finite-deformation twins, whose C reads grad_u_prev),
+and static condensation in trailing layout gives the condensed Jacobian:
 
     dxi_dx    = -(dC/dxi)^-1 dC/dx
     J_total   = dR/dx + dR/dxi dxi_dx
@@ -49,7 +50,8 @@ def blocks_kernel(bmodel, spec, elem_res, x_eT, xp_eT, xiT, xipT, path, gNT, det
 
     def G(v):
         xi_, xe, xpe, xip, p = v[:c0], v[c0:c1], v[c1:c2], v[c2:c3], v[c3:]
-        C = bmodel.residual(xi_, xip, elem_kinematics(spec, xe, gNT), p, path)
+        C = bmodel.residual(xi_, xip, elem_kinematics(spec, xe, gNT), p, path,
+                            elem_kinematics(spec, xpe, gNT))
         return torch.cat([C, elem_res(xe, xpe, xi_, geom, p)])
 
     _, cols = jvp_columns(G, torch.cat([xiT, x_eT, xp_eT, xipT, parT]))

@@ -13,8 +13,8 @@ twin decides the mode:
                                  ARE the condensed Jacobian
                                  (pallas_assembly.py:343-362); kernel
                                  csrc/fused_assembly.cu
-  implicit (the Hill family)     a local Newton per element, then the
-                                 tangents of H(v) = [C; S_rows] over the
+  implicit (the Hill and          a local Newton per element, then the
+  hyper_J2 families)             tangents of H(v) = [C; S_rows] over the
                                  nxi + d*d seeds of v = [xi; grad_u] and
                                  dxi/dgu = -(dC/dxi)^-1 dC/dgu
                                  (pallas_assembly.py:363-400); kernel
@@ -23,7 +23,11 @@ twin decides the mode:
 The spec decides the rows: mixed u/p with GLS stabilization, whose
 pressure columns are added analytically (pallas_assembly.py:423-476),
 or displacement only, the momentum rows times the thickness
-('mechanics_plane_stress', pallas_assembly.py:299-314,402-421).
+('mechanics_plane_stress', pallas_assembly.py:299-314,402-421).  A twin
+with finite_deformation has PK1 momentum rows sigma cof(F) (times the
+z-stretch when displacement only), the stabilization (tau / det F)
+cof^T cof grad_p, and pressure columns through cof(F) and cof^T cof /
+det F at the element's F (pallas_assembly.py:235,299-315,423-451).
 
   fused_assembly(...)        the wrapper: a kernel on CUDA tensors, the
                              plain version on CPU ones
@@ -34,8 +38,10 @@ or displacement only, the momentum rows times the thickness
 
 Outputs keep calibr8_tpu's trailing layout: R_T (nde, E), J_T
 (nde, nde, E), xi_T (nxi, E), path and fail (E,) int32, so they compare
-directly with make_pallas_assemble's.  No model ported so far reads
-grad_u_prev, so the kernels take no x_prev.
+directly with make_pallas_assemble's.  x_prev, the previous step's
+solution, is read by the finite-deformation twins only (their trial
+state pushes xi_prev forward by F F_prev^-1); for the others it may be
+None.
 """
 
 from __future__ import annotations
@@ -48,7 +54,9 @@ from calibr8_tpu_torch import kernels
 from calibr8_tpu_torch.mechanics.global_residual import (
     PARENT_MEASURE, elem_kinematics, make_elem_rows, quadrature_tables, stab_tau,
 )
-from calibr8_tpu_torch.models.batched import KERNEL_MODEL_ID, get_batched_model, jvp_columns
+from calibr8_tpu_torch.models.batched import (
+    KERNEL_MODEL_ID, get_batched_model, jvp_columns, t_cof, t_det, t_F, t_mm, t_transpose,
+)
 from calibr8_tpu_torch.utils.smallsolve import gauss_solve_T
 
 
@@ -68,10 +76,14 @@ def check_supported(bmodel, spec) -> None:
         )
 
 
-def _check_inputs(disc, bmodel, x, xi_prev, params_all):
+def _check_inputs(disc, bmodel, x, xi_prev, params_all, x_prev=None):
     dev, dt = disc.device, disc.dtype
     req = kernels.require
-    for name, t in (("x", x), ("xi_prev", xi_prev), ("params_all", params_all)):
+    named = [("x", x), ("xi_prev", xi_prev), ("params_all", params_all)]
+    if x_prev is not None:
+        req(x_prev.shape == x.shape, f"x_prev has shape {tuple(x_prev.shape)}, x {tuple(x.shape)}")
+        named.append(("x_prev", x_prev))
+    for name, t in named:
         req(t.device == dev, f"{name} is on {t.device}, the Disc on {dev}")
         req(t.dtype == dt, f"{name} is {t.dtype}, the Disc {dt}")
         req(t.is_contiguous(), f"{name} is not contiguous")
@@ -113,16 +125,16 @@ _ARGTYPES = (
 )
 
 
-def fused_assembly(disc, bmodel, x, xi_prev, params_all):
+def fused_assembly(disc, bmodel, x, xi_prev, params_all, x_prev=None):
     """(R_T, J_T, xi_T, path, fail) for every element of `disc`.
 
     On CUDA tensors this launches the twin's kernel (or raises): the
-    analytic kernel here, the implicit one through implicit_assembly.
+    analytic kernel here, the implicit ones through implicit_assembly.
     On CPU tensors it runs the plain version."""
     if not x.is_cuda:
-        return fused_assembly_plain(disc, bmodel, x, xi_prev, params_all)
+        return fused_assembly_plain(disc, bmodel, x, xi_prev, params_all, x_prev=x_prev)
     if not bmodel.analytic_solve:
-        return implicit_assembly(disc, bmodel, x, xi_prev, params_all)
+        return implicit_assembly(disc, bmodel, x, xi_prev, params_all, x_prev=x_prev)
     _check_inputs(disc, bmodel, x, xi_prev, params_all)
     spec = disc.spec
     kernels.require(spec.mixed, "the analytic kernel takes mixed u/p specs only")
@@ -146,24 +158,28 @@ def fused_assembly(disc, bmodel, x, xi_prev, params_all):
 
 _IMPLICIT_ARGTYPES = (
     [ctypes.c_int] * 4
-    + [ctypes.c_void_p] * 8
+    + [ctypes.c_void_p] * 9
     + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_double] * 4
     + [ctypes.c_void_p] * 7
 )
 
 
-def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None):
-    """The implicit-mode kernel (csrc/implicit_assembly.cu) for an
-    implicit twin on CUDA tensors: (R_T, J_T, xi_T, path, fail).  With
-    `newton_iters` an int32 (E,) CUDA tensor, the kernel also writes each
-    element's local Newton iteration count there.  On CPU tensors it
-    runs the plain version."""
+def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None, x_prev=None):
+    """The implicit-mode kernel for an implicit twin on CUDA tensors:
+    (R_T, J_T, xi_T, path, fail), from csrc/implicit_assembly.cu; the
+    finite-deformation twins read x_prev.  With `newton_iters` an
+    int32 (E,) CUDA tensor, the kernel also writes each element's local
+    Newton iteration count there.  On CPU tensors it runs the plain
+    version."""
     if not x.is_cuda:
-        return fused_assembly_plain(disc, bmodel, x, xi_prev, params_all)
-    _check_inputs(disc, bmodel, x, xi_prev, params_all)
+        return fused_assembly_plain(disc, bmodel, x, xi_prev, params_all, x_prev=x_prev,
+                                    newton_iters=newton_iters)
+    _check_inputs(disc, bmodel, x, xi_prev, params_all, x_prev)
     spec = disc.spec
     req = kernels.require
     req(not bmodel.analytic_solve, f"{bmodel.name!r} is an analytic twin")
+    req(x_prev is not None or not bmodel.finite_deformation,
+        f"{bmodel.name!r} reads x_prev: pass it")
     check_supported(bmodel, spec)
     E = disc.n_elem
     if newton_iters is not None:
@@ -175,7 +191,8 @@ def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None):
     fn = kernels.function("implicit_assembly", "c8_implicit_assembly", _IMPLICIT_ARGTYPES)
     err = fn(
         x.device.index, kernels.dtype_code(disc.dtype), KERNEL_MODEL_ID[bmodel.name], E,
-        x.data_ptr(), disc.edofs_T.data_ptr(), xi_prev.data_ptr(),
+        x.data_ptr(), (x if x_prev is None else x_prev).data_ptr(), disc.edofs_T.data_ptr(),
+        xi_prev.data_ptr(),
         disc.gN_T.data_ptr(), disc.detJ.data_ptr(), disc.h.data_ptr(),
         params_all.data_ptr(), disc.es_ids32.data_ptr(),
         ctypes.cast(quad, ctypes.c_void_p), npts,
@@ -190,9 +207,10 @@ def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None):
     return R_T, J_T, xi_T, path, fail
 
 
-def fused_assembly_plain(disc, bmodel, x, xi_prev, params_all):
-    """The plain PyTorch version of both kernels: the same function, the
-    same outputs, on any device."""
+def fused_assembly_plain(disc, bmodel, x, xi_prev, params_all, x_prev=None,
+                         newton_iters=None):
+    """The plain PyTorch version of the kernels: the same function, the
+    same outputs, on any device; `newton_iters` as for implicit_assembly."""
     spec = disc.spec
     d, npe, ndpn, nde = spec.dim, spec.npe, spec.ndofs_per_node, spec.ndofs_elem
     E = disc.n_elem
@@ -209,6 +227,8 @@ def fused_assembly_plain(disc, bmodel, x, xi_prev, params_all):
     xipT = xi_prev.T
     wdv0 = dJ * PARENT_MEASURE[d]
     gu = elem_kinematics(spec, x_eT, gNT)
+    # frozen under the seeds, as calibr8_tpu's kernel holds it
+    gu_prev = None if x_prev is None else elem_kinematics(spec, x_prev[disc.edofs].T, gNT)
     # the nodal pressures are constants of the grad_u (and xi) seeds
     p_eT = x_eT.reshape(npe, ndpn, E)[:, d] if mixed else None
     elem_rows = make_elem_rows(bmodel, spec)
@@ -222,22 +242,22 @@ def fused_assembly_plain(disc, bmodel, x, xi_prev, params_all):
         # condensed Jacobian
         def H(guf):
             gu_ = guf.reshape(d, d, E)
-            xi_, _, _ = bmodel.local_solve(xipT, gu_, parT)
+            xi_, _, _ = bmodel.local_solve(xipT, gu_, parT, gu_prev)
             return S_rows(xi_, gu_)
 
         R_T, cols = jvp_columns(H, gu0f)  # cols[g, i] = dR_i/dgu_g
         K = cols.permute(1, 0, 2)
-        xiT, path, fail = bmodel.local_solve(xipT, gu, parT)
+        xiT, path, fail = bmodel.local_solve(xipT, gu, parT, gu_prev)
     else:
         # implicit condensation about the Newton solution: seeds over
         # v = [xi; gu], dxi/dgu = -(dC/dxi)^-1 dC/dgu
         nxi = bmodel.nxi
-        xiT, path, fail = bmodel.local_solve(xipT, gu, parT)
+        xiT, path, fail = bmodel.local_solve(xipT, gu, parT, gu_prev, newton_iters)
 
         def H(v):
             xi_ = v[:nxi]
             gu_ = v[nxi:].reshape(d, d, E)
-            C = bmodel.residual(xi_, xipT, gu_, parT, path)
+            C = bmodel.residual(xi_, xipT, gu_, parT, path, gu_prev)
             return torch.cat([C, S_rows(xi_, gu_)])
 
         Hf0, cols = jvp_columns(H, torch.cat([xiT, gu0f]))  # cols[k, i] = dH_i/dv_k
@@ -256,10 +276,19 @@ def fused_assembly_plain(disc, bmodel, x, xi_prev, params_all):
     # u columns: J[i, (m, c)] = sum_j K[i, c, j] gN[m, j]
     J5[:, :, :, :d] = torch.einsum("icjE,mjE->imcE", K, gNT).reshape(npe, ndpn, npe, d, E)
     if mixed:
-        # p columns of the momentum rows: -(1/npe) gN[n, ci] wdv0, for every m
-        J5[:, :d, :, d] = (-(1.0 / npe) * gNT * wdv0)[:, :, None, :]
+        if bmodel.finite_deformation:
+            # through F: momentum -(1/npe) wdv0 (cof(F) gN_n)_ci, and the
+            # pull-back M = cof^T cof / det F in gg
+            F0 = t_F(gu)
+            cof0 = t_cof(F0)
+            M0 = t_mm(t_transpose(cof0), cof0) / t_det(F0)
+            pcol = torch.einsum("cjE,njE->ncE", cof0, gNT)
+            gg = torch.einsum("njE,jkE,mkE->nmE", gNT, M0, gNT)
+        else:
+            pcol, gg = gNT, torch.einsum("njE,mjE->nmE", gNT, gNT)
+        # p columns of the momentum rows: -(1/npe) wdv0 pcol[n, ci], for every m
+        J5[:, :d, :, d] = (-(1.0 / npe) * pcol * wdv0)[:, :, None, :]
         # p columns of the pressure rows: -tau wdv0 gg[m, n] - (dJ/psf) mass[n][m]
-        gg = torch.einsum("njE,mjE->nmE", gNT, gNT)
         mass_t = torch.tensor(mass, dtype=dtype, device=x.device)
         J5[:, d, :, d] = (-stab_tau(spec, parT, hh) * wdv0 * gg
                           - (dJ / bmodel.pressure_scale_factor(parT)) * mass_t[:, :, None])
@@ -276,13 +305,15 @@ class FusedAssembler:
         self.bmodel = get_batched_model(model)
         check_supported(self.bmodel, self.spec)
 
-    def assemble(self, x, xi_prev, params_all):
+    def assemble(self, x, xi_prev, params_all, x_prev=None):
         """Returns (R (n_dofs,), J_T (nde, nde, E), diag (n_dofs,),
-        xi (E, nxi), path (E,), nfail (0-d tensor))."""
+        xi (E, nxi), path (E,), nfail (0-d tensor)); x_prev, the previous
+        step's solution, is read by the finite-deformation twins."""
         disc = self.disc
         npe, ndpn = self.spec.npe, self.spec.ndofs_per_node
         E = disc.n_elem
-        R_T, J_T, xi_T, path, fail = fused_assembly(disc, self.bmodel, x, xi_prev, params_all)
+        R_T, J_T, xi_T, path, fail = fused_assembly(disc, self.bmodel, x, xi_prev, params_all,
+                                                    x_prev=x_prev)
         # one scatter for the residual and the Jacobian diagonal together
         D = torch.diagonal(J_T, 0, 0, 1)  # (E, nde)
         rows = torch.cat(

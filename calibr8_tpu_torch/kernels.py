@@ -26,14 +26,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("fused_assembly", "implicit_assembly", "ebe_matvec", "ell_spmv", "ell_spmv_T")
-HEADERS = ("c8_dual.cuh", "c8_element.cuh", "c8_hill.cuh", "c8_implicit.cuh")
+KERNELS = ("fused_assembly", "implicit_assembly", "ebe_matvec", "ell_spmv", "ell_spmv_T")
+HEADERS = ("c8_dual.cuh", "c8_element.cuh", "c8_hill.cuh", "c8_hyper.cuh", "c8_implicit.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
-launches = {name: 0 for name in SOURCES}
+launches = {name: 0 for name in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _funcs: dict[str, object] = {}
@@ -61,7 +61,7 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES) -> dict[str, float]:
+def build(names=KERNELS) -> dict[str, float]:
     """Compile the named sources that have no up-to-date library, all in
     parallel.  Returns {name: seconds} for the ones built; raises with
     the compiler's output if any fails.  Each build's output (ptxas

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from calibr8_tpu_torch.fem import basis
-from calibr8_tpu_torch.models.batched import usum
+from calibr8_tpu_torch.models.batched import t_cof, t_det, t_F, t_mm, t_transpose, usum
 
 PARENT_MEASURE = {2: 0.5, 3: 1.0 / 6.0}
 
@@ -104,7 +104,14 @@ def make_elem_rows(bmodel, spec: MechanicsSpec):
     h (E,)), parT (n_params, E), for the trailing twin `bmodel`
     (calibr8_tpu mechanics/global_residual.py:130-194, element axis
     last).  The one Python form of the residual: the primal's plain
-    assembly seeds it over gu, the adjoint blocks over every argument."""
+    assembly seeds it over gu, the adjoint blocks over every argument.
+
+    For a twin with finite_deformation the momentum rows hold the first
+    Piola-Kirchhoff stress J sigma F^-T = sigma cof(F), times the
+    z-stretch xi[z_stretch_idx] when displacement only (plane stress,
+    mechanics_plane_stress.cpp:66-84), and the stabilization pulls grad_p
+    back: (tau / det F) cof(F)^T cof(F) grad_p (global_residual.py:
+    144-185 there)."""
     d, npe = spec.dim, spec.npe
     meas0 = PARENT_MEASURE[d]
     N1, w1, _ = quadrature_tables(d)
@@ -115,6 +122,13 @@ def make_elem_rows(bmodel, spec: MechanicsSpec):
         wdv0 = detJ * meas0
         p_ip = usum(p_e, 0) * (1.0 / npe) if spec.mixed else torch.zeros_like(detJ)
         sigma = bmodel.cauchy(xiT, gu, parT, p_ip)
+        finite = bmodel.finite_deformation
+        if finite:
+            F = t_F(gu)
+            cof = t_cof(F)
+            sigma = t_mm(sigma, cof)
+            if not spec.mixed:
+                sigma = xiT[bmodel.z_stretch_idx] * sigma
         # momentum: R_u[n, i] = sigma[i, j] grad_N[n, j] wdv
         R_u = [[usum(sigma[i] * gNT[n], 0) * wdv0 for i in range(d)] for n in range(npe)]
         if not spec.mixed:
@@ -125,7 +139,14 @@ def make_elem_rows(bmodel, spec: MechanicsSpec):
         psf = bmodel.pressure_scale_factor(parT)
         hydro = bmodel.hydro_cauchy(xiT, gu, parT)
         tau = stab_tau(spec, parT, h)
-        stab_gp = [tau * usum(p_e * gNT[:, j], 0) for j in range(d)]
+        grad_p = [usum(p_e * gNT[:, j], 0) for j in range(d)]
+        if finite:
+            M = t_mm(t_transpose(cof), cof)
+            sc = tau / t_det(F)
+            stab_gp = [sc * usum(torch.stack([M[j, k] * grad_p[k] for k in range(d)]), 0)
+                       for j in range(d)]
+        else:
+            stab_gp = [tau * grad_p[j] for j in range(d)]
         p_q = [usum(torch.stack([N1[q][n] * p_e[n] for n in range(npe)]), 0) for q in range(nq)]
         out = []
         for n in range(npe):
@@ -146,8 +167,9 @@ def make_elem_rows(bmodel, spec: MechanicsSpec):
 def make_elem_residual(bmodel, spec: MechanicsSpec):
     """The element residual f(x_eT, xp_eT, xiT, geom, parT) -> R_T
     (nde, E) of element dofs x_eT (nde, E): make_elem_rows at their
-    grad_u and nodal pressures.  None of the ported models reads
-    x_prev."""
+    grad_u and nodal pressures.  The rows read no x_prev: the twins'
+    stress measures depend on grad_u and xi alone (x_prev enters through
+    the local residual C)."""
     rows = make_elem_rows(bmodel, spec)
 
     def f(x_eT, xp_eT, xiT, geom, parT):

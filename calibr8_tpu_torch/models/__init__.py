@@ -9,9 +9,8 @@ carries only what the rest of the system needs to know about it: its
 parameter order, the size and initial value of its local state, and its
 local-solve tolerance.
 
-Models outside the port so far (hyper_J2 and its plane variants, the
-hypo, hosford and barlat families, the NN hybrid, isotropic_elastic)
-raise NotImplementedError.
+Models outside the port so far (the hypo, hosford and barlat families,
+the NN hybrid, isotropic_elastic) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -83,17 +82,63 @@ class SmallHillPlaneStress(SmallHillPlaneStrain):
     name = "small_hill_plane_stress"
 
 
+class HyperJ2(Elastic):
+    """Finite-deformation multiplicative J2 on the isochoric elastic left
+    Cauchy-Green tensor, hardening Y + S (1 - exp(-D alpha)) + A (alpha +
+    1e-12)^n + K alpha (reference: hyper_J2.cpp).  xi = [zeta voigt, Ie,
+    alpha], Ie = 1 at the start."""
+
+    name = "hyper_J2"
+    param_names = ("E", "nu", "Y", "S", "D", "A", "n", "K")
+
+    def nxi(self) -> int:
+        return (3 if self.dim == 2 else 6) + 2
+
+    def init_xi(self) -> np.ndarray:
+        xi = np.zeros(self.nxi())
+        xi[self.nxi() - 2] = 1.0
+        return xi
+
+
+class HyperJ2PlaneStrain(Elastic):
+    """2D mixed plane strain (hyper_J2_plane_strain.cpp): zeta_zz =
+    -tr(zeta), hardening Y + K alpha + (Y_inf - Y)(1 - exp(-delta alpha)).
+    xi = [zeta voigt (3), Ie, alpha]."""
+
+    name = "hyper_J2_plane_strain"
+    param_names = ("E", "nu", "K", "Y", "Y_inf", "delta")
+
+    def nxi(self) -> int:
+        return 5
+
+    def init_xi(self) -> np.ndarray:
+        return np.array([0.0, 0.0, 0.0, 1.0, 0.0])
+
+
+class HyperJ2PlaneStress(Elastic):
+    """2D plane stress (hyper_J2_plane_stress.cpp), displacement only under
+    'mechanics_plane_stress': the out-of-plane stretch lambda_z is local
+    state.  xi = [zeta voigt (3), Ie, lambda_z, alpha]."""
+
+    name = "hyper_J2_plane_stress"
+    param_names = ("E", "nu", "Y", "S", "D", "A", "n", "K")
+
+    def nxi(self) -> int:
+        return 6
+
+    def init_xi(self) -> np.ndarray:
+        return np.array([0.0, 0.0, 0.0, 1.0, 1.0, 0.0])
+
+
 _REGISTRY = {
     cls.name: cls
-    for cls in (Elastic, SmallJ2, SmallHill, SmallHillPlaneStrain, SmallHillPlaneStress)
+    for cls in (Elastic, SmallJ2, SmallHill, SmallHillPlaneStrain, SmallHillPlaneStress,
+                HyperJ2, HyperJ2PlaneStrain, HyperJ2PlaneStress)
 }
 
 # the models the port has not got yet, and the fused-assembly twin each
 # one needs (calibr8_tpu models/batched.py)
 _QUEUED = {
-    "hyper_J2": "the implicit twin with finite-deformation kinematics and grad_u_prev",
-    "hyper_J2_plane_strain": "the implicit twin with finite-deformation kinematics",
-    "hyper_J2_plane_stress": "the implicit twin with the z-stretch PK1 rows",
     "hypo_hill": "the implicit twin with the polar rotation",
     "hypo_hill_plane_strain": "the implicit twin with the polar rotation",
     "hypo_hill_plane_stress": "the implicit twin with the polar rotation",

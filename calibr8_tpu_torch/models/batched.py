@@ -9,16 +9,20 @@ csrc/c8_hill.cuh for the implicit ones) follow them line by line, so
 the two agree to rounding.
 
 Analytic twins (elastic, small_J2) solve the local state in closed form;
-implicit twins (the small-strain Hill family) run implicit_newton, and
-the assembly condenses dxi/dgu through their residual.  Every twin has
-the local residual C with the branch forced to a given path, which the
-adjoint blocks (fem/adjoint_blocks.py) differentiate.  Each twin takes
-grad_u (d, d, E) directly (calibr8_tpu passes a Kinematics whose
-grad_u_prev none of these models reads).  Tangent
+implicit twins (the small-strain Hill family, the finite-deformation
+hyper_J2 family) run implicit_newton, and the assembly condenses dxi/dgu
+through their residual.  Every twin has the local residual C with the
+branch forced to a given path, which the adjoint blocks
+(fem/adjoint_blocks.py) differentiate.  Each twin takes grad_u (d, d, E)
+and, in its local-state methods (first_guess, pathfn, local_solve,
+residual), grad_u_prev, the two fields of calibr8_tpu's Kinematics.
+Only the twins with finite_deformation read grad_u_prev (the relative
+deformation gradient F F_prev^-1 of the trial state); for the others it
+may be None.  The stress measures read grad_u alone.  Tangent
 rules follow JAX's, which the plain version reproduces under
 torch.func.jvp: torch.where takes the tangent of the selected branch,
-torch.maximum splits the tangent evenly at a tie, and t_norm adds 1e-30
-under the square root.
+torch.maximum splits the tangent evenly at a tie, t_norm adds 1e-30
+under the square root, and x ** n at n == 0 has a zero tangent in x.
 """
 
 from __future__ import annotations
@@ -98,6 +102,7 @@ class BatchedSmallJ2:
     name = "small_J2"
     analytic_solve = True
     plane_stress = False
+    finite_deformation = False
 
     def __init__(self, model):
         self.model = model
@@ -114,7 +119,7 @@ class BatchedSmallJ2:
         ps = t_voigt_to_sym(xiT[: self.nc], self.dim)
         return 2.0 * mu * (t_dev3(t_sym(gu)) - ps)
 
-    def local_solve(self, xipT, gu, parT):
+    def local_solve(self, xipT, gu, parT, gu_prev=None):
         """Closed-form radial return (the same root the reference's local
         Newton finds, small_J2.cpp:186-246).  Returns (xiT, path (E,)
         int32, failed (E,) int32)."""
@@ -135,7 +140,7 @@ class BatchedSmallJ2:
         path = plastic.to(torch.int32)
         return xiT, path, torch.zeros_like(path)
 
-    def residual(self, xiT, xipT, gu, parT, path):
+    def residual(self, xiT, xipT, gu, parT, path, gu_prev=None):
         """The local residual C with the branch forced to `path`
         (calibr8_tpu models/small_strain.py:92-148): plastic rows
         pstrain - pstrain_old - sqrt(3/2) dalpha n and f, elastic rows
@@ -177,6 +182,7 @@ class BatchedElastic:
     name = "elastic"
     analytic_solve = True
     plane_stress = False
+    finite_deformation = False
 
     def __init__(self, model):
         self.model = model
@@ -187,11 +193,11 @@ class BatchedElastic:
     def _mu(self, parT):
         return parT[0] / (2.0 * (1.0 + parT[1]))
 
-    def local_solve(self, xipT, gu, parT):
+    def local_solve(self, xipT, gu, parT, gu_prev=None):
         path = torch.zeros(xipT.shape[-1], dtype=torch.int32, device=xipT.device)
         return torch.zeros_like(xipT), path, torch.zeros_like(path)
 
-    def residual(self, xiT, xipT, gu, parT, path):
+    def residual(self, xiT, xipT, gu, parT, path, gu_prev=None):
         """C = xi (models/elastic.py:52-53): the dummy slot stays 0."""
         return xiT
 
@@ -293,6 +299,7 @@ class _ImplicitTwin:
 
     analytic_solve = False
     plane_stress = False
+    finite_deformation = False
     newton_iters = 16
 
     def __init__(self, model):
@@ -322,15 +329,15 @@ class _ImplicitTwin:
     def pressure_scale_factor(self, parT):
         return parT[0] / (3.0 * (1.0 - 2.0 * parT[1]))
 
-    def first_guess(self, xipT, gu, parT):
+    def first_guess(self, xipT, gu, parT, gu_prev=None):
         return xipT
 
-    def pathfn(self, xiT, xipT, gu, parT):
+    def pathfn(self, xiT, xipT, gu, parT, gu_prev=None):
         f, _ = self._f_and_n(xiT, gu, parT)
         return (f >= -self.abs_tol).to(torch.int32)
 
-    def local_solve(self, xipT, gu, parT):
-        return implicit_newton(self, xipT, gu, parT)
+    def local_solve(self, xipT, gu, parT, gu_prev=None, iters=None):
+        return implicit_newton(self, xipT, gu, parT, gu_prev, iters)
 
 
 class BatchedSmallHill(_ImplicitTwin):
@@ -352,7 +359,7 @@ class BatchedSmallHill(_ImplicitTwin):
         f = (hval - self._voce(alpha, parT)) / mu
         return f, t_hill_normal(s, hp, hval)
 
-    def residual(self, xiT, xipT, gu, parT, path):
+    def residual(self, xiT, xipT, gu, parT, path, gu_prev=None):
         """Branchwise C (small_hill.cpp); the branches blend as w a +
         (1 - w) b with w = (path == 1), as calibr8_tpu writes them."""
         ps = t_voigt_to_sym(xiT[: self.nc], 3)
@@ -394,7 +401,7 @@ class _SmallHill2D(_ImplicitTwin):
         f = (hval - self._voce(alpha, parT)) / mu
         return f, t_in_plane(t_hill_normal(s3, hp, hval))
 
-    def residual(self, xiT, xipT, gu, parT, path):
+    def residual(self, xiT, xipT, gu, parT, path, gu_prev=None):
         ps = t_voigt_to_sym(xiT[: self.nc], 2)
         alpha = xiT[self.nc]
         ps_old = t_voigt_to_sym(xipT[: self.nc], 2)
@@ -442,27 +449,287 @@ class BatchedSmallHillPlaneStress(_SmallHill2D):
         return t_embed3(self.cauchy(xiT, gu, parT))
 
 
-def implicit_newton(bm, xipT, gu, parT):
+def t_mm(A, B):
+    """(d, d, E) @ (d, d, E).  One einsum, not calibr8_tpu's unrolled
+    sums: the order of the k sums differs by rounding only, and the plain
+    version runs a third faster under torch.func."""
+    return torch.einsum("ikE,kjE->ijE", A, B)
+
+
+def t_transpose(a):
+    return a.transpose(0, 1)
+
+
+def t_det(a):
+    if a.shape[0] == 2:
+        return a[0, 0] * a[1, 1] - a[0, 1] * a[1, 0]
+    return (
+        a[0, 0] * (a[1, 1] * a[2, 2] - a[1, 2] * a[2, 1])
+        - a[0, 1] * (a[1, 0] * a[2, 2] - a[1, 2] * a[2, 0])
+        + a[0, 2] * (a[1, 0] * a[2, 1] - a[1, 1] * a[2, 0])
+    )
+
+
+def t_cof(a):
+    """The cofactor matrix, so that inv(a) = cof(a)^T / det(a)."""
+    if a.shape[0] == 2:
+        return torch.stack([torch.stack([a[1, 1], -a[1, 0]]), torch.stack([-a[0, 1], a[0, 0]])])
+
+    def m(i1, j1, i2, j2):
+        return a[i1, j1] * a[i2, j2] - a[i1, j2] * a[i2, j1]
+
+    return torch.stack([
+        torch.stack([m(1, 1, 2, 2), -m(1, 0, 2, 2), m(1, 0, 2, 1)]),
+        torch.stack([-m(0, 1, 2, 2), m(0, 0, 2, 2), -m(0, 0, 2, 1)]),
+        torch.stack([m(0, 1, 1, 2), -m(0, 0, 1, 2), m(0, 0, 1, 1)]),
+    ])
+
+
+def t_inv(a):
+    return t_transpose(t_cof(a)) / t_det(a)
+
+
+def t_F(gu):
+    """F = I + grad_u."""
+    return t_add_diag(gu, 1.0)
+
+
+def _sigma_yield_power(alpha, parT):
+    """Y + S (1 - exp(-D alpha)) + A (alpha + 1e-12)^n + K alpha, params
+    [E, nu, Y, S, D, A, n, K] (hyper_J2.cpp, hyper_J2_plane_stress.cpp)."""
+    Y, S, D, A, n, K = (parT[i] for i in range(2, 8))
+    return Y + S * (1.0 - torch.exp(-D * alpha)) + A * (alpha + 1e-12) ** n + K * alpha
+
+
+class _HyperJ2Twin(_ImplicitTwin):
+    """Shared pieces of the finite-deformation J2 twins (calibr8_tpu
+    models/batched.py:304-421, 1159-1289, 1396-1573): the local state
+    [zeta voigt, Ie, (lambda_z,) alpha] with zeta = dev(be_bar), Ie =
+    tr(be_bar) / 3; the trial be_bar pushed forward by rF_bar = rF /
+    det(rF)^(1/3), rF = F F_prev^-1 (the cube root as exp(log / 3), as
+    calibr8_tpu writes it); radial return with n = s / |s|, s = mu zeta."""
+
+    finite_deformation = True
+
+    def _F_prev(self, gu_prev):
+        if gu_prev is None:
+            raise ValueError(f"{self.name!r} reads grad_u_prev: pass the previous step's state")
+        return t_F(gu_prev)
+
+    def _kappa(self, parT):
+        return parT[0] / (3.0 * (1.0 - 2.0 * parT[1]))
+
+    def _f(self, s_mag, alpha, parT):
+        return (s_mag - SQRT_23 * self._sigma_yield(alpha, parT)) / self._mu(parT)
+
+    def _blend(self, path, xiT, plastic, elastic):
+        w = (path == 1).to(xiT.dtype)
+        return w * plastic + (1.0 - w) * elastic
+
+    def dev_cauchy(self, xiT, gu, parT):
+        """Kirchhoff's deviator mu zeta over J = det(F)."""
+        zeta = t_voigt_to_sym(xiT[: self.nc], self.dim)
+        return (self._mu(parT) / t_det(t_F(gu))) * zeta
+
+    def hydro_cauchy(self, xiT, gu, parT):
+        J = t_det(t_F(gu))
+        return 0.5 * self._kappa(parT) * (J - 1.0 / J)
+
+
+class BatchedHyperJ2(_HyperJ2Twin):
+    """Twin of HyperJ2 (3D, mixed u/p): xi (8, E) = [zeta voigt (6), Ie,
+    alpha]; params (8, E) = [E, nu, Y, S, D, A, n, K]."""
+
+    name = "hyper_J2"
+
+    def __init__(self, model):
+        if model.dim != 3:
+            raise NotImplementedError(
+                "hyper_J2 runs in the fused assembly in 3D only (calibr8_tpu's twin is 3D); "
+                "in 2D use hyper_J2_plane_strain or hyper_J2_plane_stress"
+            )
+        super().__init__(model)
+
+    def _sigma_yield(self, alpha, parT):
+        return _sigma_yield_power(alpha, parT)
+
+    def _be_bar_trial(self, xipT, gu, gu_prev):
+        rF = t_mm(t_F(gu), t_inv(self._F_prev(gu_prev)))
+        rF_bar = rF * torch.exp(-torch.log(t_det(rF)) / 3.0)
+        zeta_old = t_voigt_to_sym(xipT[:6], 3)
+        return t_mm(t_mm(rF_bar, t_add_diag(zeta_old, xipT[6])), t_transpose(rF_bar))
+
+    def first_guess(self, xipT, gu, parT, gu_prev=None):
+        be_tr = self._be_bar_trial(xipT, gu, gu_prev)
+        return torch.cat([t_sym_to_voigt(t_dev3(be_tr), 3), (t_trace(be_tr) / 3.0)[None],
+                          xipT[7][None]])
+
+    def pathfn(self, xiT, xipT, gu, parT, gu_prev=None):
+        mu = self._mu(parT)
+        f = self._f(t_norm(mu * t_voigt_to_sym(xiT[:6], 3)), xiT[7], parT)
+        return (f >= -self.abs_tol).to(torch.int32)
+
+    def residual(self, xiT, xipT, gu, parT, path, gu_prev=None):
+        """Branchwise C (hyper_J2.cpp evaluate)."""
+        mu = self._mu(parT)
+        zeta = t_voigt_to_sym(xiT[:6], 3)
+        Ie, alpha, alpha_old = xiT[6], xiT[7], xipT[7]
+        be_tr = self._be_bar_trial(xipT, gu, gu_prev)
+        s = mu * zeta
+        s_mag = t_norm(s)
+        f = self._f(s_mag, alpha, parT)
+        dgam = SQRT_32 * (alpha - alpha_old)
+        dev_tr = t_dev3(be_tr)
+        R_z = self._blend(path, xiT, zeta - dev_tr + (2.0 * dgam * Ie) * (s / s_mag), zeta - dev_tr)
+        R_Ie = self._blend(path, xiT, t_det(t_add_diag(zeta, Ie)) - 1.0, Ie - t_trace(be_tr) / 3.0)
+        R_a = self._blend(path, xiT, f, alpha - alpha_old)
+        return torch.cat([t_sym_to_voigt(R_z, 3), R_Ie[None], R_a[None]])
+
+
+class _HyperJ22D(_HyperJ2Twin):
+    """The plane variants: zeta in plane, zeta_zz = -tr(zeta)."""
+
+    def _zeta3(self, xiT):
+        zeta = t_voigt_to_sym(xiT[:3], 2)
+        return t_embed3(zeta, -t_trace(zeta))
+
+    def _trial(self, be3):
+        """(zeta_tr (2, 2, E), Ie_tr) of a trial be_bar (3, 3, E)."""
+        Ie_tr = t_trace(be3) / 3.0
+        zeta_tr = torch.stack([torch.stack([be3[0, 0] - Ie_tr, be3[0, 1]]),
+                               torch.stack([be3[1, 0], be3[1, 1] - Ie_tr])])
+        return zeta_tr, Ie_tr
+
+    def pathfn(self, xiT, xipT, gu, parT, gu_prev=None):
+        s_mag = t_norm(self._mu(parT) * self._zeta3(xiT))
+        f = self._f(s_mag, xiT[self.alpha_idx], parT)
+        return (f >= -self.abs_tol).to(torch.int32)
+
+    def _plastic_rows(self, xiT, xipT, parT, path, zeta_tr, Ie_tr):
+        """The blended zeta, Ie and alpha rows."""
+        mu = self._mu(parT)
+        zeta = t_voigt_to_sym(xiT[:3], 2)
+        Ie = xiT[3]
+        alpha, alpha_old = xiT[self.alpha_idx], xipT[self.alpha_idx]
+        zeta3 = self._zeta3(xiT)
+        s_mag = t_norm(mu * zeta3)
+        f = self._f(s_mag, alpha, parT)
+        n2 = (mu / s_mag) * zeta
+        dgam = SQRT_32 * (alpha - alpha_old)
+        R_z = self._blend(path, xiT, zeta - zeta_tr + (2.0 * dgam * Ie) * n2, zeta - zeta_tr)
+        R_Ie = self._blend(path, xiT, t_det(t_add_diag(zeta3, Ie)) - 1.0, Ie - Ie_tr)
+        R_a = self._blend(path, xiT, f, alpha - alpha_old)
+        return t_sym_to_voigt(R_z, 2), R_Ie, R_a
+
+
+class BatchedHyperJ2PlaneStrain(_HyperJ22D):
+    """Twin of HyperJ2PlaneStrain (2D, mixed u/p): xi (5, E) = [zeta voigt
+    (3), Ie, alpha]; params (6, E) = [E, nu, K, Y, Y_inf, delta]."""
+
+    name = "hyper_J2_plane_strain"
+    alpha_idx = 4
+
+    def _sigma_yield(self, alpha, parT):
+        K, Y, Y_inf, delta = (parT[i] for i in range(2, 6))
+        return Y + K * alpha + (Y_inf - Y) * (1.0 - torch.exp(-delta * alpha))
+
+    def _be_bar_3d(self, xipT, gu, gu_prev):
+        """(hyper_J2_plane_strain.cpp eval_be_bar_plane_strain)"""
+        rF = t_mm(t_F(gu), t_inv(self._F_prev(gu_prev)))
+        c = torch.exp(torch.log(t_det(rF)) / 3.0)
+        rF_bar = rF / c
+        zeta_old = t_voigt_to_sym(xipT[:3], 2)
+        Ie_old = xipT[3]
+        be2 = t_mm(t_mm(rF_bar, t_add_diag(zeta_old, Ie_old)), t_transpose(rF_bar))
+        return t_embed3(be2, (-t_trace(zeta_old) + Ie_old) / (c * c))
+
+    def first_guess(self, xipT, gu, parT, gu_prev=None):
+        zeta_tr, Ie_tr = self._trial(self._be_bar_3d(xipT, gu, gu_prev))
+        return torch.cat([t_sym_to_voigt(zeta_tr, 2), Ie_tr[None], xipT[4][None]])
+
+    def residual(self, xiT, xipT, gu, parT, path, gu_prev=None):
+        zeta_tr, Ie_tr = self._trial(self._be_bar_3d(xipT, gu, gu_prev))
+        R_z, R_Ie, R_a = self._plastic_rows(xiT, xipT, parT, path, zeta_tr, Ie_tr)
+        return torch.cat([R_z, R_Ie[None], R_a[None]])
+
+
+class BatchedHyperJ2PlaneStress(_HyperJ22D):
+    """Twin of HyperJ2PlaneStress (2D, displacement only, under
+    'mechanics_plane_stress'): the out-of-plane stretch lambda_z is local
+    state enforcing sigma_zz = 0, and the rows are z_stretch sigma cof(F).
+    xi (6, E) = [zeta voigt (3), Ie, lambda_z, alpha]; params (8, E) =
+    [E, nu, Y, S, D, A, n, K]."""
+
+    name = "hyper_J2_plane_stress"
+    plane_stress = True
+    z_stretch_idx = 4
+    alpha_idx = 5
+    newton_iters = 20
+
+    def _sigma_yield(self, alpha, parT):
+        return _sigma_yield_power(alpha, parT)
+
+    def _be_bar_3d(self, xipT, gu, gu_prev, lam_z):
+        """(hyper_J2_plane_stress.cpp eval_be_bar_plane_stress) with the
+        current lambda_z in F3 and the previous one in Fp3."""
+        F3 = t_embed3(t_F(gu), lam_z)
+        Fp3 = t_embed3(self._F_prev(gu_prev), xipT[4])
+        rF = t_mm(F3, t_inv(Fp3))
+        rF_bar = rF * torch.exp(-torch.log(t_det(rF)) / 3.0)
+        zeta_old = t_voigt_to_sym(xipT[:3], 2)
+        zeta3 = t_embed3(zeta_old, -t_trace(zeta_old))
+        return t_mm(t_mm(rF_bar, t_add_diag(zeta3, xipT[3])), t_transpose(rF_bar))
+
+    def first_guess(self, xipT, gu, parT, gu_prev=None):
+        zeta_tr, Ie_tr = self._trial(self._be_bar_3d(xipT, gu, gu_prev, xipT[4]))
+        return torch.cat([t_sym_to_voigt(zeta_tr, 2), Ie_tr[None], xipT[4:6]])
+
+    def residual(self, xiT, xipT, gu, parT, path, gu_prev=None):
+        mu = self._mu(parT)
+        lam_z = xiT[4]
+        zeta_tr, Ie_tr = self._trial(self._be_bar_3d(xipT, gu, gu_prev, lam_z))
+        R_z, R_Ie, R_a = self._plastic_rows(xiT, xipT, parT, path, zeta_tr, Ie_tr)
+        # the plane-stress constraint on the out-of-plane stretch
+        zeta_zz = -t_trace(t_voigt_to_sym(xiT[:3], 2))
+        J_2D = t_det(t_F(gu))
+        q = (1.0 - zeta_zz / (self._kappa(parT) / (2.0 * mu))) / (J_2D * J_2D)
+        R_lam = lam_z - torch.sqrt(torch.maximum(q, torch.full_like(q, 1e-30)))
+        return torch.cat([R_z, R_Ie[None], R_lam[None], R_a[None]])
+
+    def cauchy(self, xiT, gu, parT, pT=None):
+        """The full in-plane Cauchy stress, J = det(F) lambda_z."""
+        zeta = t_voigt_to_sym(xiT[:3], 2)
+        J = t_det(t_F(gu)) * xiT[4]
+        return t_add_diag((self._mu(parT) / J) * zeta, 0.5 * self._kappa(parT) * (J - 1.0 / J))
+
+
+def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
     """The fixed-iteration local Newton of the implicit twins, per lane
     (calibr8_tpu models/batched.py:561-671, without its precompute,
     frozen-path and line-search options, which these twins do not use).
-    Each iteration takes the branch from the current xi, marks a lane
+    It starts from the twin's first_guess (xi_prev, or the hyper twins'
+    elastic trial state, batched.py:582).  Each iteration takes the
+    branch from the current xi, marks a lane
     done once ||C|| < abs_tol (before its update), and adds the step
     times (1 - done) * all(isfinite(dxi)); the loop ends after
     newton_iters iterations or when every lane is done.  Returns (xiT,
     path, failed), path and failed (E,) int32, failed where ||C(xi)|| >=
-    max(10 abs_tol, 1e-30) at the end."""
+    max(10 abs_tol, 1e-30) at the end.  With `iters` an (E,) int32
+    tensor, each lane's number of iterations before it was done (the
+    CUDA kernel's count) is written there."""
     nxi = bm.nxi
-    xi = bm.first_guess(xipT, gu, parT)
+    xi = bm.first_guess(xipT, gu, parT, gu_prev)
     dtype, E = xi.dtype, xi.shape[-1]
     done = torch.zeros(E, dtype=torch.int32, device=xi.device)
+    count = torch.zeros_like(done)
     for _ in range(bm.newton_iters):
         if bool(done.min() >= 1):
             break
-        path = bm.pathfn(xi, xipT, gu, parT)
-        R, cols = jvp_columns(lambda z: bm.residual(z, xipT, gu, parT, path), xi)
+        path = bm.pathfn(xi, xipT, gu, parT, gu_prev)
+        R, cols = jvp_columns(lambda z: bm.residual(z, xipT, gu, parT, path, gu_prev), xi)
         rnorm = torch.sqrt(usum(R * R, 0))
         done = torch.maximum(done, (rnorm < bm.abs_tol).to(torch.int32))
+        count += 1 - done
         J = cols.permute(1, 0, 2)  # J[i, k] = dC_i / dxi_k
         dxi = gauss_solve_T(J, -R[:, None, :])[:, 0, :]
         fin = torch.isfinite(dxi).to(dtype)
@@ -471,10 +738,12 @@ def implicit_newton(bm, xipT, gu, parT):
             ok = ok * fin[k]
         gate = (1 - done).to(dtype) * ok
         xi = xi + gate * dxi
-    path = bm.pathfn(xi, xipT, gu, parT)
-    Rf = bm.residual(xi, xipT, gu, parT, path)
+    path = bm.pathfn(xi, xipT, gu, parT, gu_prev)
+    Rf = bm.residual(xi, xipT, gu, parT, path, gu_prev)
     rnorm = torch.sqrt(usum(Rf * Rf, 0))
     failed = (rnorm >= max(bm.abs_tol * 10.0, 1e-30)).to(torch.int32)
+    if iters is not None:
+        iters.copy_(count)
     return xi, path, failed
 
 
@@ -494,6 +763,9 @@ BATCHED_MODELS = {
     "small_hill": BatchedSmallHill,
     "small_hill_plane_strain": BatchedSmallHillPlaneStrain,
     "small_hill_plane_stress": BatchedSmallHillPlaneStress,
+    "hyper_J2": BatchedHyperJ2,
+    "hyper_J2_plane_strain": BatchedHyperJ2PlaneStrain,
+    "hyper_J2_plane_stress": BatchedHyperJ2PlaneStress,
 }
 
 # the CUDA kernels' model index (csrc/fused_assembly.cu c8_fused_assembly
@@ -502,6 +774,7 @@ BATCHED_MODELS = {
 KERNEL_MODEL_ID = {
     "elastic": 0, "small_J2": 1,
     "small_hill": 0, "small_hill_plane_strain": 1, "small_hill_plane_stress": 2,
+    "hyper_J2": 3, "hyper_J2_plane_strain": 4, "hyper_J2_plane_stress": 5,
 }
 
 

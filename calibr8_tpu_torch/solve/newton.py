@@ -73,8 +73,9 @@ class StepSolver:
         # Krylov iterations of each linear solve of the last step
         self.krylov_iters: list[int] = []
 
-    def _assemble(self, x, xi_prev, params, bc_dofs, bc_vals, ext_force):
-        R, J_T, diag, xi, path, nfail = self.assembler.assemble(x, xi_prev, params)
+    def _assemble(self, x, x_prev, xi_prev, params, bc_dofs, bc_vals, ext_force):
+        R, J_T, diag, xi, path, nfail = self.assembler.assemble(x, xi_prev, params,
+                                                                x_prev=x_prev)
         R_bc = apply_dbcs_residual(R - ext_force, diag, x, bc_dofs, bc_vals)
         return dict(
             xi=xi, path=path, nfail=int(nfail), R=R_bc, J_T=J_T, diag=diag,
@@ -108,7 +109,7 @@ class StepSolver:
                       step: int = 0):
         """Returns (x, xi, path, info); raises NewtonSolveError on failure
         (primal.cpp:99-104, 183-191, 203-207).  x_prev is the previous
-        step's solution; the two models of this slice do not read it."""
+        step's solution, which the finite-deformation twins read."""
         cfg = self.cfg
         do_print = cfg.print_convergence
         dev = self.assembler.disc.device
@@ -118,7 +119,7 @@ class StepSolver:
             print(f"ON PRIMAL STEP ({step})")
 
         with timers.phase("primal/assemble", dev):
-            base = self._assemble(x, xi_prev, params, bc_dofs, bc_vals, ext_force)
+            base = self._assemble(x, x_prev, xi_prev, params, bc_dofs, bc_vals, ext_force)
         if base["nfail"] > 0:
             raise NewtonSolveError(f"primal step {step}: local solve failed at the base point")
 
@@ -153,7 +154,7 @@ class StepSolver:
             for n in range(1, ls.max_evals + 1):
                 with timers.phase("primal/assemble", dev):
                     trial = self._assemble(
-                        x + alpha * dx, xi_prev, params, bc_dofs, bc_vals, ext_force
+                        x + alpha * dx, x_prev, xi_prev, params, bc_dofs, bc_vals, ext_force
                     )
                 if trial["nfail"] > 0:
                     alpha *= 0.5

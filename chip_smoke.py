@@ -7,15 +7,18 @@ Phases, in order; any failure exits non-zero without the result lines:
 
  1. device: the card's name and power limit (nvidia-smi), the torch and
     CUDA versions, and the build of the five CUDA kernels from
-    calibr8_tpu_torch/csrc with nvcc (one process per source, in
-    parallel), with ptxas's register and spill report.
+    calibr8_tpu_torch/csrc with nvcc (one process per source, six
+    sources: the implicit assembly's Hill and hyper_J2 instances build
+    apart, in parallel), with ptxas's register and spill report.
  2. each kernel against its plain PyTorch version, in float32 and
     float64, at the shapes of the full-width problems, in states with
     plastic and elastic elements: the slice-1 kernels at cube n=32,
     small_J2, mixed u/p (196,608 elements, 143,748 dofs); the implicit
-    assembly at cube n=32 small_hill (mixed u/p) and at notch2D h=0.004
-    small_hill_plane_stress (displacement only), with the EBE and both ELL
-    kernels held once more at the latter's shapes (nde = 6, ndpn = 2).
+    assembly at cube n=32 small_hill and hyper_J2 (mixed u/p), at
+    notch2D h=0.004 small_hill_plane_stress and hyper_J2_plane_stress
+    (displacement only) and hyper_J2_plane_strain (mixed u/p), the hyper
+    cases with x != x_prev; the EBE and both ELL kernels held once more
+    at notch2D's shapes (nde = 6, ndpn = 2, and nde = 9, ndpn = 3).
     The transposed ELL kernel (3b) is also held, with the whole transposed
     operator, at the bench deck's shapes.
     Each record: max error relative to max|plain|, the kernel's time per
@@ -24,24 +27,27 @@ Phases, in order; any failure exits non-zero without the result lines:
     could take (bound), and for the implicit kernel the histogram of
     local Newton iterations.
  3. the goldens of tests/decks.py on the card in float64 (cube_elastic,
-    notch2D_small_J2 and the small-strain Hill family's three), and the
-    notch deck once more through GMRES on the ELL operator.
+    notch2D_small_J2, the small-strain Hill family's three and the
+    hyper_J2 family's five), and the notch deck once more through GMRES
+    on the ELL operator.
  4. the full-width primal solves (float64, GMRES + block Gauss-Seidel)
     through Problem(...).solve_primal(): the bench deck (cube n=32,
     small_J2) with the assembled ELL matrix as the Krylov operator and
     once more, for 1 load step, with the matrix-free EBE operator; cube
-    n=32 small_hill (mixed u/p, 2 load steps); notch2D h=0.004
-    small_hill_plane_stress ('mechanics_plane_stress', 2 load steps).
-    Each run's launch counts are set to 0 just before it and read just
-    after; J is held at rel 1e-6 to its reference.
+    n=32 small_hill and hyper_J2 (mixed u/p, 2 load steps); notch2D
+    h=0.004 small_hill_plane_stress and hyper_J2_plane_stress
+    ('mechanics_plane_stress', 2 load steps).  Each run's launch counts
+    are set to 0 just before it and read just after; J is held at rel
+    1e-6 to its reference.
  5. the adjoint (float64), through AdjointObjective's value and
-    gradient: (a) the notch2D small_J2 8-step deck against finite
-    differences, log10 error drop > 6; (b) the bench deck and (c) cube
-    n=32 small_hill (adjoint_deck), dJ/dp held at 1e-5 to calibr8_tpu's
-    (G_REF_*), every adjoint relative residual <= 0.5, ell_spmv_T
-    launched.  Launch counts as in phase 4.
+    gradient: (a) against finite differences, log10 error drop > 6: the
+    notch2D small_J2 8-step deck and the hyper_J2_plane_stress twin case
+    on notch2D h=0.12 (fd_decks); (b) the bench deck, (c) cube n=32
+    small_hill and (d) cube n=32 hyper_J2 (adjoint_deck), dJ/dp held at
+    1e-5 to calibr8_tpu's (G_REF_*), every adjoint relative residual
+    <= 0.5, ell_spmv_T launched.  Launch counts as in phase 4.
  6. one JSON line listing every ported kernel (launches: the sum over
-    the runs of phases 4, 5b and 5c), the card's name and power limit,
+    the runs of phases 4 and 5b-5d), the card's name and power limit,
     and the `ok` line last.
 
 The script imports nothing of JAX or of calibr8_tpu.  Kernel builds go to
@@ -96,6 +102,24 @@ G_REF_N32 = {
     "body/E": -0.00035812580149246847, "body/nu": -0.00039393833293960046,
     "body/K": 5.50962830303721e-05, "body/Y": 0.0003030289456029175,
 }
+# J of the full-width hyper decks (hyper_deck(32): the adjoint reference's
+# primal; hyper_plane_stress_deck(0.004)) and dJ/dp of adjoint_deck("hyper"),
+# from calibr8_tpu (JAX 0.9.0) on the 8-core CPU of the machine with the
+# card: chip_reference.py adjoint / chip_reference.py hyper_plane_stress.
+# The cube deck's J is that of the adjoint reference's primal (334 s; its
+# adjoint 141 s, relative residuals 1.15e-04 and 3.78e-05 for steps 2, 1);
+# the plane-stress deck's steps 2.1442278319457808e-03 and
+# 4.6276746386353165e-03 (774 s).
+J_REF_HYPER_N32 = 2.172376682414853e-03
+J_REF_HYPER_PLANE_STRESS_H004 = 6.771902470581097e-03
+G_REF_HYPER = {
+    "body/E": -0.0003494897100992006, "body/nu": -0.0003841267499682554,
+    "body/Y": 0.00029616368222581046, "body/K": 5.332581850217601e-05,
+}
+
+# the active parameters of the hyper_J2_plane_stress finite-difference check
+FD_HYPER_ACTIVE = {"E": [800.0, 1200.0], "Y": [5.0, 15.0], "S": [2.5, 7.5], "K": [25.0, 75.0]}
+
 G_REF_HILL_N32 = {
     "body/E": -0.0003692167601930235, "body/nu": -0.00037353152717606325,
     "body/Y": 0.0003619588017463349, "body/R00": 1.0362846637154069e-06,
@@ -164,19 +188,40 @@ def hill_deck(n: int) -> dict:
     return deck
 
 
+# the hyper_J2 twin cases' constants (calibr8_tpu/models/twin_cases.py:57-64
+# and :156-163)
+HYPER_MAT = {"E": 1000.0, "nu": 0.25, "K": 100.0, "Y": 10.0,
+             "S": 0.0, "D": 0.0, "A": 0.0, "n": 0.0}
+HYPER_PS_MAT = {"E": 1000.0, "nu": 0.25, "Y": 10.0, "S": 5.0, "D": 2.0,
+                "A": 0.0, "n": 0.0, "K": 50.0}
+
+
+def hyper_deck(n: int) -> dict:
+    """The bench deck (bench.py:106-147) with hyper_J2 at its twin case's
+    constants."""
+    from calibr8_tpu_torch.profile_primal import bench_deck
+
+    deck = bench_deck(n)
+    lr = deck["residuals"]["local residual"]
+    lr["type"] = "hyper_J2"
+    lr["materials"] = {"body": dict(HYPER_MAT)}
+    return deck
+
+
 ADJOINT_ACTIVE = {
     "bench": ("E", "nu", "K", "Y"),
     "hill": ("E", "nu", "Y", "S", "D", "R00", "R11", "R01"),
+    "hyper": ("E", "nu", "K", "Y"),
 }
 
 
 def adjoint_deck(name: str) -> dict:
-    """The full-width deck `name` (the bench deck or hill_deck(32)) with an
-    `inverse` sublist: the parameters of ADJOINT_ACTIVE[name] active over
-    [0.8, 1.2] times their deck values."""
+    """The full-width deck `name` (the bench deck, hill_deck(32) or
+    hyper_deck(32)) with an `inverse` sublist: the parameters of
+    ADJOINT_ACTIVE[name] active over [0.8, 1.2] times their deck values."""
     from calibr8_tpu_torch.profile_primal import bench_deck
 
-    deck = bench_deck(32) if name == "bench" else hill_deck(32)
+    deck = {"bench": bench_deck, "hill": hill_deck, "hyper": hyper_deck}[name](32)
     mats = deck["residuals"]["local residual"]["materials"]["body"]
     deck["inverse"] = {"materials": {"body": {
         k: [0.8 * mats[k], 1.2 * mats[k]] for k in ADJOINT_ACTIVE[name]}}}
@@ -193,6 +238,25 @@ def plane_stress_deck(h: float) -> dict:
     deck = _deck({"type": "notch2D", "h": h}, "small_hill_plane_stress", HILL2D, bcs_2d(0.01), 2,
                  gtype="mechanics_plane_stress")
     deck["linear algebra"] = {"method": "gmres", "tolerance": 1e-6, "maximum iterations": 1000}
+    return deck
+
+
+def hyper_plane_strain_deck(h: float) -> dict:
+    """The hyper_J2_plane_strain twin case (calibr8_tpu/models/twin_cases.py:
+    147-155, mixed u/p) on notch2D of size h, 2 load steps: the kernel
+    phase's plane-strain shapes (nde 9, ndpn 3)."""
+    return _deck({"type": "notch2D", "h": h}, "hyper_J2_plane_strain",
+                 {"E": 1000.0, "nu": 0.25, "K": 50.0, "Y": 10.0, "Y_inf": 15.0, "delta": 2.0},
+                 bcs_2d(0.01), 2)
+
+
+def hyper_plane_stress_deck(h: float) -> dict:
+    """plane_stress_deck(h) with hyper_J2_plane_stress at its twin case's
+    constants (calibr8_tpu/models/twin_cases.py:156-163)."""
+    deck = plane_stress_deck(h)
+    lr = deck["residuals"]["local residual"]
+    lr["type"] = "hyper_J2_plane_stress"
+    lr["materials"] = {"body": dict(HYPER_PS_MAT)}
     return deck
 
 
@@ -240,12 +304,45 @@ GOLDENS = {
               {**VOCE_MAT, **UNIT_R}, bcs_3d(0.001), 4),
         1.42045746802104e-04, 1e-8,
     ),
+    "cube_hyper_J2": (
+        _deck({"type": "cube", "n": 2}, "hyper_J2", HYPER_MAT, bcs_3d(0.01), 10),
+        1.57817536611772440e-2, 1e-4,
+    ),
+    "cube_hyperelasticity": (
+        _deck({"type": "cube", "n": 2}, "hyper_J2", {**HYPER_MAT, "Y": 100000.0},
+              bcs_3d(0.001), 4),
+        8.34720846455980019e-4, 1e-4,
+    ),
+    "cube_hyperelasticity_traction": (
+        {**_deck({"type": "cube", "n": 2}, "hyper_J2", {**HYPER_MAT, "Y": 100000.0},
+                 {"expression": {
+                     "bc 1": [0, 0, "ymin", "0.0"],
+                     "bc 2": [0, 1, "ymin", "0.0"],
+                     "bc 3": [0, 2, "ymin", "0.0"],
+                 }}, 4),
+         "traction bcs": {"bc 1": [0, "ymax", "0.", "0.1 * t", "0."]}},
+        1.64544766180509e-04, 1e-7,
+    ),
+    "notch2D_hyper_J2_plane_strain": (
+        _deck({"type": "notch2D", "h": 0.12}, "hyper_J2_plane_strain",
+              {"E": 1000.0, "nu": 0.25, "K": 100.0, "Y": 10.0, "Y_inf": 0.0, "delta": 0.0},
+              bcs_2d(0.001), 8),
+        6.52601761728928e-03, 1e-8,
+    ),
+    "notch2D_hyper_J2_plane_stress": (
+        _deck({"type": "notch2D", "h": 0.12}, "hyper_J2_plane_stress",
+              {"E": 1000.0, "nu": 0.25, "Y": 2.0, "S": 10.0, "D": 2.0, "A": 0.0, "n": 0.0,
+               "K": 0.0}, bcs_2d(0.005), 5, gtype="mechanics_plane_stress"),
+        1.74207846258545e-02, 1e-8,
+    ),
 }
 
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "fused_assembly": ("calibr8_tpu_torch/csrc/fused_assembly.cu",
                        "calibr8_tpu/fem/pallas_assembly.py:496"),
+    # the kernels line carries its figures at cube n=32 hyper_J2 (the
+    # Hill twins' are in the phase-2 records)
     "implicit_assembly": ("calibr8_tpu_torch/csrc/implicit_assembly.cu",
                           "calibr8_tpu/fem/pallas_assembly.py:496"),
     "ebe_matvec": ("calibr8_tpu_torch/csrc/ebe_matvec.cu",
@@ -420,7 +517,9 @@ def phase_kernels(mesh, results):
         lms = time_ms(lambda: torch.mv(csr, v), 30)
         err_lib = rel_err(torch.mv(csr, v), yp)[0]
         del csr
-        nbytes = K * ndpn * ndpn * N * w + K * N * 4 + 2 * n_dofs * w
+        # the A_T blocks of the filled slots (the kernel skips the pad
+        # slots'), all of nbr_T and x read once, y written once
+        nbytes = nnz_slots * ndpn * ndpn * w + K * N * 4 + 2 * n_dofs * w
         b_ms, b_by = bound(nbytes, 2.0 * ndpn * ndpn * nnz_slots, dn)
         rec = dict(kernel="ell_spmv", dtype=dn, rel_err=err, max_abs_err=aerr,
                    rel_err_vs_ebe=err_vs_ebe, K=K, filled_slots=nnz_slots, ms=ms,
@@ -515,17 +614,19 @@ def check_ell_spmv_T(label, disc, J_T, diag_e, bc_dofs, results):
     return good
 
 
-def partial_yield_state(disc, nxi, scale, seed=0):
+def partial_yield_state(disc, nxi, scale, seed=0, noise=None):
     """tests/test_torch_implicit.py's state: u_y = scale y^2, u_x =
-    -0.3 scale x plus noise (partial yield), a random nodal pressure for
-    mixed specs, and a small previous plastic strain."""
+    -0.3 scale x plus noise of standard deviation `noise` (0.02 scale by
+    default; partial yield), a random nodal pressure for mixed specs, and a
+    small previous plastic strain (the finite-deformation twins add their
+    initial state to it and read it with x_prev, see implicit_inputs)."""
     d = disc.spec.dim
     rng = np.random.default_rng(seed)
     c = disc.mesh.coords
     u = np.zeros((disc.n_nodes, d))
     u[:, 1] = scale * c[:, 1] ** 2
     u[:, 0] = -0.3 * scale * c[:, 0]
-    u = u + 0.02 * scale * rng.standard_normal(u.shape)
+    u = u + (0.02 * scale if noise is None else noise) * rng.standard_normal(u.shape)
     parts = [u.reshape(-1)]
     if disc.spec.mixed:
         parts.append(0.5 * rng.standard_normal(disc.n_nodes))
@@ -535,14 +636,57 @@ def partial_yield_state(disc, nxi, scale, seed=0):
     return x, xi_prev
 
 
+def implicit_inputs(prob, scale):
+    """(x, x_prev, xi_prev) of the kernel phase on prob's Disc: the
+    partly yielded state; for a finite-deformation twin x_prev is the
+    same state at half the scale (another seed), and xi_prev is the
+    initial state plus the small perturbation, alpha (the last slot) >= 0
+    (tests/test_torch_hyper_assembly.py's inputs).  The finite-deformation
+    states carry nodal noise of 1% of the median element size in float64
+    (the default noise, 10% of an element at notch2D h=0.004, inverts
+    elements) and none in float32: with that noise one ill-conditioned
+    element (9 local iterations) has a J that differs by 1.2e-4 of max|J|
+    between the two float32 versions, float32's reach there, where float64
+    agrees to 3e-13 (PERF.md has the runs)."""
+    disc, bm = prob.disc, prob.assembler.bmodel
+    if not bm.finite_deformation:
+        x, xi_prev = partial_yield_state(disc, bm.nxi, scale)
+        return x, None, xi_prev
+    noise = 0.01 * float(disc.h.double().median()) if disc.dtype == torch.float64 else 0.0
+    x, xi_prev = partial_yield_state(disc, bm.nxi, scale, noise=noise)
+    x_prev, _ = partial_yield_state(disc, bm.nxi, 0.5 * scale, seed=7, noise=noise)
+    xi_prev = xi_prev + torch.as_tensor(prob.model.init_xi(), dtype=disc.dtype, device=disc.device)
+    xi_prev[:, -1] = xi_prev[:, -1].abs()
+    return x, x_prev, xi_prev
+
+
 def gauss_flops(n: int, m: int) -> int:
     """Operations of c8::gauss_solve on an n x (n + m) system."""
     return sum(1 + (n + m - k - 1) + 2 * (n - 1) * (n + m - k - 1) for k in range(n))
 
 
 F32_LOCAL_TOL = 1e-6
-IMPLICIT_LIMITS = {"float64": dict(xi=1e-12, R=1e-12, J=1e-11),
-                   "float32": dict(R=1e-4, J=1e-4, path_agree=0.999)}
+# the hyper_J2 family's local residual holds Ie ~ 1 and lambda_z ~ 1, where
+# 1e-6 is ~16 float32 ulps: at 1e-6 up to 2% of its elements stop one
+# iteration apart in the two versions (PERF.md has the runs); its float32
+# check runs at bench.py's 1e-5
+F32_LOCAL_TOL_FINITE = 1e-5
+# at most this share of a check's elements may fail their local Newton
+MAX_FAILED_SHARE = 1e-4
+# Compared: the elements that took the same branch in both versions and
+# converged; for the Hill family all of them at these limits.  For the
+# finite-deformation twins, the elements whose two local Newtons took the
+# same number of iterations are held to these limits, and the others to
+# APART_FACTOR times the local tolerance abs_tol: each Newton stops once
+# ||C|| < abs_tol, and where ||C|| lands within rounding of abs_tol one
+# version takes one more step, which moves xi by up to
+# abs_tol / sigma_min(dC/dxi), not by rounding.  Measured (PERF.md):
+# 16 abs_tol in float64 (R, notch2D plane stress with nodal noise) and
+# 24 abs_tol in float32 (R, the same twin on a smooth state).  At least
+# `iters_agree` of the elements must take equal iteration counts.
+IMPLICIT_LIMITS = {"float64": dict(xi=1e-12, R=1e-12, J=1e-11, iters_agree=0.9999),
+                   "float32": dict(R=1e-4, J=1e-4, path_agree=0.999, iters_agree=0.99)}
+APART_FACTOR = 100.0
 
 
 def check_implicit(label, prob, scale, results):
@@ -555,32 +699,52 @@ def check_implicit(label, prob, scale, results):
     w = 4 if disc.dtype == torch.float32 else 8
     spec = disc.spec
     E, nde, npe, d, nxi = disc.n_elem, spec.ndofs_elem, spec.npe, spec.dim, bm.nxi
-    x, xi_prev = partial_yield_state(disc, nxi, scale)
+    x, x_prev, xi_prev = implicit_inputs(prob, scale)
     P = prob.params0
     iters = torch.zeros(E, dtype=torch.int32, device=DEVICE)
-    out_k = implicit_assembly(disc, bm, x, xi_prev, P, newton_iters=iters)
-    out_p = fused_assembly_plain(disc, bm, x, xi_prev, P)
+    iters_p = torch.zeros_like(iters)
+    out_k = implicit_assembly(disc, bm, x, xi_prev, P, newton_iters=iters, x_prev=x_prev)
+    out_p = fused_assembly_plain(disc, bm, x, xi_prev, P, x_prev=x_prev, newton_iters=iters_p)
     torch.cuda.synchronize()
-    hist = torch.bincount(iters.long(), minlength=17).tolist()
+    hist = torch.bincount(iters.long(), minlength=bm.newton_iters + 1).tolist()
     same_path = out_k[3] == out_p[3]
     agree = float(same_path.double().mean())
-    errs = {}
-    for name, a, b in zip(("R", "J", "xi"), out_k[:3], out_p[:3]):
-        # elements whose branch differs (float32) are left out
-        errs[name] = rel_err(a[..., same_path], b[..., same_path])
+    same_iters = iters == iters_p
+    iters_agree = float(same_iters.double().mean())
+    # A failed element's state is the cap's last iterate, which the
+    # primal's Newton never uses (it backtracks on nfail > 0).
+    converged = (out_k[4] == 0) & (out_p[4] == 0)
+    compared = same_path & converged
+    split = bm.finite_deformation
+    apart = compared & ~same_iters if split else torch.zeros_like(compared)
+    compared = compared & ~apart
+    apart_lim = APART_FACTOR * bm.abs_tol
+
+    def errors(mask):
+        return {name: rel_err(a[..., mask], b[..., mask]) if bool(mask.any()) else (0.0, 0.0)
+                for name, a, b in zip(("R", "J", "xi"), out_k[:3], out_p[:3])}
+
+    errs, apart_err = errors(compared), errors(apart)
     fails = (int(out_k[4].sum()), int(out_p[4].sum()))
     lim = IMPLICIT_LIMITS[dn]
     if dn == "float64":
-        ok = agree == 1.0 and bool(torch.equal(out_k[4], out_p[4])) and all(
-            errs[k][0] <= lim[k] for k in ("xi", "R", "J"))
+        keys = ("xi", "R", "J")
+        ok = agree == 1.0 and bool(torch.equal(out_k[4], out_p[4]))
     else:
-        ok = agree >= lim["path_agree"] and all(errs[k][0] <= lim[k] for k in ("R", "J"))
-    ok = ok and all(bool(torch.isfinite(t).all()) for t in out_k[:3])
-    ms = time_ms(lambda: implicit_assembly(disc, bm, x, xi_prev, P), 10)
-    pms = time_ms(lambda: fused_assembly_plain(disc, bm, x, xi_prev, P), 1, rounds=1)
-    # bytes: every input read once, every output written once
-    nbytes = (disc.n_dofs * w + nde * E * 4 + E * nxi * w + npe * d * E * w + 2 * E * w
-              + P.numel() * w + E * 4 + nde * E * w + nde * nde * E * w + nxi * E * w + 2 * E * 4)
+        keys = ("R", "J")
+        ok = agree >= lim["path_agree"]
+    ok = ok and all(errs[k][0] <= lim[k] and apart_err[k][0] <= apart_lim for k in keys)
+    ok = ok and (not split or iters_agree >= lim["iters_agree"])
+    ok = ok and max(fails) <= MAX_FAILED_SHARE * E
+    ok = ok and all(bool(torch.isfinite(t[..., converged]).all()) for t in out_k[:3])
+    ms = time_ms(lambda: implicit_assembly(disc, bm, x, xi_prev, P, x_prev=x_prev), 10)
+    pms = time_ms(lambda: fused_assembly_plain(disc, bm, x, xi_prev, P, x_prev=x_prev), 1,
+                  rounds=1)
+    # bytes: every input read once (x_prev too where the twin reads it),
+    # every output written once
+    nbytes = ((1 if x_prev is None else 2) * disc.n_dofs * w + nde * E * 4 + E * nxi * w
+              + npe * d * E * w + 2 * E * w + P.numel() * w + E * 4 + nde * E * w
+              + nde * nde * E * w + nxi * E * w + 2 * E * 4)
     # operations counted from c8_implicit.cuh, a lower bound: the small
     # solves (one per Newton update this run's data needed, one for the
     # condensation), the condensed rows K and the contraction with grad_N;
@@ -591,10 +755,13 @@ def check_implicit(label, prob, scale, results):
     b_ms, b_by = bound(nbytes, flops, dn)
     rec = dict(kernel="implicit_assembly", case=label, dtype=dn,
                rel_err={k: v[0] for k, v in errs.items()},
-               max_abs_err=max(e[1] for e in errs.values()), path_agree=agree,
-               plastic=int(out_p[3].sum()), elements=E, fail_kernel_plain=fails,
+               max_abs_err=max(e[1] for e in (*errs.values(), *apart_err.values())),
+               path_agree=agree, plastic=int(out_p[3].sum()), elements=E, fail_kernel_plain=fails,
+               compared=int(compared.sum()), iters_agree=iters_agree,
+               iters_apart=int(apart.sum()),
+               rel_err_iters_apart={k: v[0] for k, v in apart_err.items()},
                newton_iters_hist=hist, ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, limits=lim, ok=ok)
+               bound_by=b_by, limits=dict(lim, apart=apart_lim if split else None), ok=ok)
     log(json.dumps(rec))
     if not ok:
         log(f"FAIL implicit_assembly {label} {dn}")
@@ -604,8 +771,9 @@ def check_implicit(label, prob, scale, results):
 
 def check_operators_at(label, disc, J_T, bc_dofs, results):
     """The EBE and both ELL kernels against their plain versions on disc's
-    shapes (displacement only: nde = 6, ndpn = 2); 3b with its bound,
-    library time and transposed operator, as at n=32."""
+    shapes (notch2D: displacement only, nde = 6, ndpn = 2, or mixed u/p,
+    nde = 9, ndpn = 3), each with its bound and library time; 3b with its
+    transposed operator too, as at n=32."""
     from calibr8_tpu_torch.fem.ebe_matvec import ebe_matvec, ebe_matvec_plain
     from calibr8_tpu_torch.solve.ellpack import (
         assemble_ell_T, build_ell_maps, ell_spmv, ell_spmv_plain,
@@ -618,35 +786,72 @@ def check_operators_at(label, disc, J_T, bc_dofs, results):
     A_T = assemble_ell_T(J_T, disc)
     nbr_T = build_ell_maps(disc)["nbr_T"]
     d = disc.spec.dim
+    w = 4 if disc.dtype == torch.float32 else 8
+    K, ndpn, _, N = A_T.shape
+    nde, E, n_dofs = disc.spec.ndofs_elem, disc.n_elem, disc.n_dofs
+    csr, nnz_slots = ell_csr(A_T, nbr_T, d, n_dofs)
+    idx = disc.edofs
+    J_ef = J_T.permute(2, 0, 1).contiguous()
+
+    def lib_ebe():
+        ye = torch.bmm(J_ef, v[idx].unsqueeze(-1)).squeeze(-1)
+        return torch.zeros(n_dofs, dtype=disc.dtype, device=DEVICE).index_add_(
+            0, idx.reshape(-1), ye.reshape(-1))
+
     ok = True
-    for name, fk, fp in (
-        ("ebe_matvec", lambda: ebe_matvec(J_T, v, disc.edofs_T, disc.n_dofs),
-         lambda: ebe_matvec_plain(J_T, v, disc.edofs_T, disc.n_dofs)),
-        ("ell_spmv", lambda: ell_spmv(A_T, nbr_T, v, d), lambda: ell_spmv_plain(A_T, nbr_T, v, d)),
+    for name, fk, fp, fl, nbytes, flops in (
+        ("ebe_matvec", lambda: ebe_matvec(J_T, v, disc.edofs_T, n_dofs),
+         lambda: ebe_matvec_plain(J_T, v, disc.edofs_T, n_dofs), lib_ebe,
+         nde * nde * E * w + nde * E * 4 + 2 * n_dofs * w, 2.0 * nde * nde * E),
+        # ELL bytes: the A_T blocks of the filled slots only, as for 3b
+        ("ell_spmv", lambda: ell_spmv(A_T, nbr_T, v, d), lambda: ell_spmv_plain(A_T, nbr_T, v, d),
+         lambda: torch.mv(csr, v), nnz_slots * ndpn * ndpn * w + K * N * 4 + 2 * n_dofs * w,
+         2.0 * ndpn * ndpn * nnz_slots),
     ):
-        err, aerr = rel_err(fk(), fp())
+        yp = fp()
+        err, aerr = rel_err(fk(), yp)
         good = err <= lim
         ok &= good
+        b_ms, b_by = bound(nbytes, flops, dn)
         rec = dict(kernel=name, case=label, dtype=dn, rel_err=err, max_abs_err=aerr,
-                   ms=time_ms(fk, 30), plain_ms=time_ms(fp, 10), limit=lim, ok=good)
+                   ms=time_ms(fk, 30), plain_ms=time_ms(fp, 10), library_ms=time_ms(fl, 10),
+                   library_rel_err=rel_err(fl(), yp)[0], bound_ms=b_ms, bound_by=b_by,
+                   ndpn=ndpn, limit=lim, ok=good)
         log(json.dumps(rec))
         results[(name, label, dn)] = rec
-    del A_T
+    del A_T, csr, J_ef
     return ok & check_ell_spmv_T(label, disc, J_T, J_T.diagonal(0, 0, 1), bc_dofs, results)
 
 
+def IMPLICIT_CASES(meshes):
+    """(label, deck, mesh, deformation scale) of the implicit kernel's
+    checks: the full-width decks of the Hill and hyper_J2 families."""
+    return (
+        ("cube n=32 small_hill", hill_deck(32), meshes["cube32"], 0.02),
+        ("notch2D h=0.004 small_hill_plane_stress", plane_stress_deck(0.004), meshes["notch004"],
+         0.01),
+        ("cube n=32 hyper_J2", hyper_deck(32), meshes["cube32"], 0.02),
+        ("notch2D h=0.004 hyper_J2_plane_strain", hyper_plane_strain_deck(0.004),
+         meshes["notch004"], 0.02),
+        ("notch2D h=0.004 hyper_J2_plane_stress", hyper_plane_stress_deck(0.004),
+         meshes["notch004"], 0.01),
+    )
+
+
+# the cases whose shapes also check the EBE and ELL kernels: ndpn 2
+# (displacement only) and ndpn 3 (2D mixed u/p)
+OPERATOR_CASES = ("notch2D h=0.004 small_hill_plane_stress", "notch2D h=0.004 hyper_J2_plane_strain")
+
+
 def phase_implicit(meshes, results):
-    """Phase 2, implicit assembly: the two full-width Hill decks' shapes,
-    float32 and float64, and the EBE / ELL kernels at the plane-stress
-    shapes."""
+    """Phase 2, implicit assembly: the full-width Hill and hyper_J2 decks'
+    shapes, float32 and float64, and the EBE / ELL kernels at the notch2D
+    shapes (ndpn 2 and 3)."""
     from calibr8_tpu_torch.deck import load_deck
     from calibr8_tpu_torch.problem import Problem
 
     ok = True
-    for label, deck, mesh, scale in (
-        ("cube n=32 small_hill", hill_deck(32), meshes["cube32"], 0.02),
-        ("notch2D h=0.004 small_hill_plane_stress", plane_stress_deck(0.004), meshes["notch004"], 0.01),
-    ):
+    for label, deck, mesh, scale in IMPLICIT_CASES(meshes):
         for dtype in (torch.float32, torch.float64):
             deck_t = copy.deepcopy(deck)
             if dtype == torch.float32:
@@ -658,11 +863,13 @@ def phase_implicit(meshes, results):
                 # one iteration apart in the two, a difference of one
                 # step below 1e-6 (at bench.py's float32 1e-5 that step
                 # can exceed this check's limit; PERF.md has the runs).
-                deck_t["residuals"]["local residual"]["nonlinear absolute tol"] = F32_LOCAL_TOL
+                lr = deck_t["residuals"]["local residual"]
+                lr["nonlinear absolute tol"] = (F32_LOCAL_TOL_FINITE if lr["type"].startswith("hyper")
+                                                else F32_LOCAL_TOL)
             prob = Problem(load_deck(deck_t), mesh=mesh, device=DEVICE, dtype=dtype)
             good, J_T = check_implicit(label, prob, scale, results)
             ok &= good
-            if not prob.disc.spec.mixed:
+            if label in OPERATOR_CASES:
                 ok &= check_operators_at(label, prob.disc, J_T, prob.dbcs.arrays(1.0, 1)[0],
                                          results)
             del prob, J_T
@@ -754,6 +961,11 @@ def full_width_runs(meshes):
          J_REF_HILL_N32, ["implicit_assembly", "ell_spmv"]),
         ("notch2D h=0.004 small_hill_plane_stress, 2 steps", plane_stress_deck(0.004),
          meshes["notch004"], "auto", J_REF_PLANE_STRESS_H004, ["implicit_assembly", "ell_spmv"]),
+        ("cube n=32 hyper_J2 mixed u/p, 2 steps", hyper_deck(32), meshes["cube32"], "auto",
+         J_REF_HYPER_N32, ["implicit_assembly", "ell_spmv"]),
+        ("notch2D h=0.004 hyper_J2_plane_stress, 2 steps", hyper_plane_stress_deck(0.004),
+         meshes["notch004"], "auto", J_REF_HYPER_PLANE_STRESS_H004,
+         ["implicit_assembly", "ell_spmv"]),
     ]
 
 
@@ -775,10 +987,24 @@ def adjoint_objective(deck, mesh=None, linear_cfg=None):
     return prob, adj, obj, active.to_canonical(active.extract(prob.params0))
 
 
-def phase_adjoint_fd():
-    """Phase 5a: the notch2D small_J2 8-step adjoint deck
-    (tests/test_adjoint_gradient.py:55-69) on the card: the adjoint
-    gradient against finite differences, log10 error drop > 6.
+# the finite-difference checks of phase 5a: label -> (deck with its
+# `inverse` sublist); each log10 error drop must exceed 6
+def fd_decks():
+    notch = copy.deepcopy(GOLDENS["notch2D_small_J2"][0])
+    notch["inverse"] = {"materials": {"body": {"E": [800.0, 1200.0], "K": [50.0, 150.0],
+                                               "Y": [5.0, 15.0]}}}
+    hyper = _deck({"type": "notch2D", "h": 0.12}, "hyper_J2_plane_stress", HYPER_PS_MAT,
+                  bcs_2d(0.02), 2, gtype="mechanics_plane_stress")
+    hyper["inverse"] = {"materials": {"body": FD_HYPER_ACTIVE}}
+    return {"notch2D h=0.12 small_J2, 8 steps": notch,
+            "notch2D h=0.12 hyper_J2_plane_stress, 2 steps": hyper}
+
+
+def phase_adjoint_fd(label, deck):
+    """Phase 5a: an adjoint deck on the card, the adjoint gradient against
+    finite differences, log10 error drop > 6: the notch2D small_J2 8-step
+    deck (tests/test_adjoint_gradient.py:55-69) and the hyper_J2_plane_stress
+    twin case on the same mesh (fd_decks).
 
     The quotients at h <= 1e-5 need J to repeat to ~1e-17 between
     nearby parameter points, as it does on the CPU.  On the card the
@@ -790,9 +1016,6 @@ def phase_adjoint_fd():
 
     from calibr8_tpu_torch.opt.objective import fd_gradient_check
 
-    deck = copy.deepcopy(GOLDENS["notch2D_small_J2"][0])
-    deck["inverse"] = {"materials": {"body": {"E": [800.0, 1200.0], "K": [50.0, 150.0],
-                                              "Y": [5.0, 15.0]}}}
     t0 = time.perf_counter()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -806,7 +1029,7 @@ def phase_adjoint_fd():
     nondeterministic = sorted({str(w.message).split(".")[0] for w in caught
                                if "deterministic" in str(w.message)})
     ok = bool(np.all(np.isfinite(g)) and np.any(g != 0.0) and drop > 6.0)
-    log(json.dumps(dict(adjoint_fd="notch2D h=0.12 small_J2, 8 steps", names=obj.active.names,
+    log(json.dumps(dict(adjoint_fd=label, names=obj.active.names,
                         grad=[float(v) for v in g], log10_drop=float(drop),
                         errors=[float(e) for e in errs], limit=6.0,
                         nondeterministic_ops=nondeterministic,
@@ -886,9 +1109,11 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     built = kernels.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall ({json.dumps(built)})")
-    for name in kernels.SOURCES:
+    for name in kernels.KERNELS:
         for line in kernels.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            # the entry's mangled name says which instance the next lines are
+            # (e.g. ...kernelIdNS_7HyperJ2E...: float64, HyperJ2)
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     results = {}
@@ -909,12 +1134,13 @@ def main(argv) -> int:
             return 1
         counts = {k: counts.get(k, 0) + v for k, v in c.items()}
 
-    ok = phase_adjoint_fd()
-    log(f"phase adjoint, finite differences: {'ok' if ok else 'FAILED'} "
-        f"({time.perf_counter() - t_start:.0f} s)")
-    if not ok:
-        return 1
-    for name, g_ref in (("bench", G_REF_N32), ("hill", G_REF_HILL_N32)):
+    for label, deck in fd_decks().items():
+        ok = phase_adjoint_fd(label, deck)
+        log(f"phase adjoint, finite differences, {label}: {'ok' if ok else 'FAILED'} "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        if not ok:
+            return 1
+    for name, g_ref in (("bench", G_REF_N32), ("hill", G_REF_HILL_N32), ("hyper", G_REF_HYPER)):
         ok, c = phase_adjoint_full_width(name, meshes["cube32"], g_ref)
         log(f"phase adjoint, full width, {name}: {'ok' if ok else 'FAILED'} "
             f"({time.perf_counter() - t_start:.0f} s)")
@@ -924,15 +1150,14 @@ def main(argv) -> int:
 
     line = []
     timed = {"fused_assembly": ("fused_assembly", "float64"),
-             "implicit_assembly": ("implicit_assembly", "cube n=32 small_hill", "float64"),
+             "implicit_assembly": ("implicit_assembly", "cube n=32 hyper_J2", "float64"),
              "ebe_matvec": ("ebe_matvec", "float64"), "ell_spmv": ("ell_spmv", "float64"),
              "ell_spmv_T": ("ell_spmv_T", "cube n=32 small_J2", "float64")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, (src, repl) in KERNELS.items():
         r = results[timed[name]]
         line.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                         launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
-                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                         library_ms=r["library_ms"]))
+                         launches=counts[name], **{k: r[k] for k in keys}))
     print(json.dumps({"kernels": line}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

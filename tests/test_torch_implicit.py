@@ -164,3 +164,82 @@ def test_wrapper_runs_plain_version_on_cpu():
     for u, v, w in zip(*outs):
         assert torch.equal(u, w) and torch.equal(v, w)
     assert kernels.launches == before
+
+
+HYPER = {
+    # name: (dim, param_names, init_xi)
+    "hyper_J2": (3, ("E", "nu", "Y", "S", "D", "A", "n", "K"), [0, 0, 0, 0, 0, 0, 1, 0]),
+    "hyper_J2_plane_strain": (2, ("E", "nu", "K", "Y", "Y_inf", "delta"), [0, 0, 0, 1, 0]),
+    "hyper_J2_plane_stress": (2, ("E", "nu", "Y", "S", "D", "A", "n", "K"), [0, 0, 0, 1, 1, 0]),
+}
+
+
+def test_hyper_registry_and_first_guess():
+    """The three finite-deformation models as calibr8_tpu registers them
+    (models/hyper_j2.py), and the first guess of their local Newton: the
+    elastic trial state, which is xi_prev when F = F_prev (no relative
+    deformation); the small-strain twins start from xi_prev whatever F
+    is.  A small elastic step of a mixed twin converges at the first guess
+    (the plane-stress twin still solves for lambda_z)."""
+    from calibr8_tpu_torch.models import create_local_model
+    from calibr8_tpu_torch.models.batched import get_batched_model
+
+    E = 4
+    rng = np.random.default_rng(3)
+    for name, (dim, names, init) in HYPER.items():
+        m = create_local_model(name, dim)
+        assert m.param_names == names and m.nxi() == len(init)
+        np.testing.assert_array_equal(m.init_xi(), init)
+        m.abs_tol = 1e-12
+        bm = get_batched_model(m)
+        assert bm.finite_deformation and not bm.analytic_solve
+        parT = torch.tensor([[1000.0, 0.25] + [10.0] * (len(names) - 2)] * E, dtype=torch.float64).T
+        if name == "hyper_J2_plane_strain":
+            parT[2:] = torch.tensor([50.0, 10.0, 15.0, 2.0], dtype=torch.float64)[:, None]
+        else:
+            parT[2:] = torch.tensor([10.0, 5.0, 2.0, 0.0, 0.0, 50.0], dtype=torch.float64)[:, None]
+        xipT = torch.tensor(init, dtype=torch.float64)[:, None].repeat(1, E)
+        gu = torch.tensor(1e-4 * rng.standard_normal((dim, dim, E)))
+        np.testing.assert_allclose(bm.first_guess(xipT, gu, parT, gu).numpy(), xipT.numpy(),
+                                   rtol=0, atol=1e-15)
+        xi, path, failed = bm.local_solve(xipT, gu, parT, torch.zeros_like(gu))
+        assert path.tolist() == [0] * E and failed.tolist() == [0] * E
+        if not bm.plane_stress:
+            assert torch.equal(xi, bm.first_guess(xipT, gu, parT, torch.zeros_like(gu)))
+        with pytest.raises(ValueError, match="grad_u_prev"):
+            bm.first_guess(xipT, gu, parT)
+    hill = get_batched_model(create_local_model("small_hill_plane_strain", 2))
+    xipT = torch.tensor(rng.standard_normal((4, E)))
+    gu = torch.tensor(rng.standard_normal((2, 2, E)))
+    assert torch.equal(hill.first_guess(xipT, gu, None), xipT)
+    with pytest.raises(NotImplementedError, match="3D only"):
+        get_batched_model(create_local_model("hyper_J2", 2))
+
+
+def test_hyper_wrappers_run_plain_version_on_cpu():
+    """On CPU tensors the wrappers are the plain version for a hyper twin
+    too (and count no launch), and report each element's local Newton
+    iterations as the kernel does; x_prev is required."""
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.fem.fused_assembly import implicit_assembly
+
+    deck = case_deck(TWINS["hyper_J2_plane_stress"], num_steps=1)
+    tp = Problem(load_deck(deck), device="cpu")
+    d = tp.disc
+    x = torch.tensor(_state(d.mesh.coords, d.n_nodes, 2, False))
+    x_prev = torch.tensor(_state(d.mesh.coords, d.n_nodes, 2, False, scale=0.01, seed=4))
+    xi_prev = torch.tensor(tp.model.init_xi())[None].repeat(d.n_elem, 1)
+    before = dict(kernels.launches)
+    bm = tp.assembler.bmodel
+    outs = [f(d, bm, x, xi_prev, tp.params0, x_prev=x_prev)
+            for f in (fused_assembly, implicit_assembly, fused_assembly_plain)]
+    for u, v, w in zip(*outs):
+        assert torch.equal(u, w) and torch.equal(v, w)
+    assert 0 < int(outs[0][3].sum()) < d.n_elem
+    assert kernels.launches == before
+    iters = torch.full((d.n_elem,), -1, dtype=torch.int32)
+    implicit_assembly(d, bm, x, xi_prev, tp.params0, newton_iters=iters, x_prev=x_prev)
+    # the plane-stress twin solves for lambda_z even where elastic
+    assert 1 <= int(iters.min()) and int(iters.max()) <= bm.newton_iters
+    with pytest.raises(ValueError, match="grad_u_prev"):
+        fused_assembly(d, bm, x, xi_prev, tp.params0)

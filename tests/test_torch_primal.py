@@ -1,6 +1,7 @@
 """The port's primal solve end to end on the CPU: the goldens of
-tests/decks.py through Problem (elastic, small_J2 and the small-strain
-Hill family, mixed u/p and plane stress), the CLI, the device rule,
+tests/decks.py through Problem (elastic, small_J2, the small-strain
+Hill family and three of the hyper_J2 family's five, mixed u/p and
+plane stress), the CLI, the device rule,
 carrying calibr8_tpu's parameters and state across, and the loud failure
 of decks outside the port."""
 
@@ -20,7 +21,8 @@ from calibr8_tpu.problem import Problem as JaxProblem
 from calibr8_tpu_torch.convert import state_from_numpy
 from calibr8_tpu_torch.deck import load_deck
 from calibr8_tpu_torch.problem import Problem
-from tests.decks import BCS_2D, BCS_3D, CUBE, J2_MAT, NOTCH2D, PRIMAL_REGRESSIONS, make_deck
+from tests.decks import (BCS_2D, BCS_3D, CUBE, J2_MAT, NOTCH2D, PRIMAL_REGRESSIONS, UNIT_R, VOCE_MAT,
+                         make_deck)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -43,17 +45,28 @@ GOLDENS = {
     "notch2D_small_J2_plane_strain": PRIMAL_REGRESSIONS["notch2D_small_J2_plane_strain"][:3],
     "notch2D_small_J2_plane_stress": PRIMAL_REGRESSIONS["notch2D_small_J2_plane_stress"][:3],
     "notch_small_J2": PRIMAL_REGRESSIONS["notch_small_J2"][:3],
+    # the finite-deformation J2 family (implicit mode, x_prev read): 3D
+    # mixed u/p (elastic, elastic with a traction) and plane strain; the
+    # 10-step plastic cube and plane stress take 5-16 s and sit in
+    # test_torch_hyper_goldens.py
+    "cube_hyperelasticity": PRIMAL_REGRESSIONS["cube_hyperelasticity"][:3],
+    "cube_hyperelasticity_traction": PRIMAL_REGRESSIONS["cube_hyperelasticity_traction"][:3],
+    "notch2D_hyper_J2_plane_strain": PRIMAL_REGRESSIONS["notch2D_hyper_J2_plane_strain"][:3],
 }
+
+
+def check_golden(deck, gold, tol, gmres=False):
+    """The port's J of `deck` on the CPU within rel `tol` of `gold`."""
+    prob = Problem(load_deck(copy.deepcopy(deck)), device="cpu")
+    traj = prob.solve_primal()
+    assert abs(traj.J - gold) / abs(gold) <= tol, traj.J
+    if gmres:
+        assert all(k > 0 for info in traj.newton_info for k in info["krylov_iters"])
 
 
 @pytest.mark.parametrize("name", list(GOLDENS))
 def test_primal_golden(name):
-    deck, gold, tol = GOLDENS[name]
-    prob = Problem(load_deck(copy.deepcopy(deck)), device="cpu")
-    traj = prob.solve_primal()
-    assert abs(traj.J - gold) / abs(gold) <= tol, traj.J
-    if name.endswith("gmres"):
-        assert all(k > 0 for info in traj.newton_info for k in info["krylov_iters"])
+    check_golden(*GOLDENS[name], gmres=name.endswith("gmres"))
 
 
 def test_cli_primal_prints_pass(tmp_path):
@@ -100,9 +113,8 @@ def test_state_from_numpy_round_trip():
 def _unsupported(key):
     deck = make_deck(CUBE, "small_J2", J2_MAT, BCS_3D(0.02), 1)
     if key == "model":
-        deck["residuals"]["local residual"]["type"] = "hyper_J2"
-        deck["residuals"]["local residual"]["materials"] = {"body": {
-            "E": 1000.0, "nu": 0.25, "K": 100.0, "Y": 10.0, "S": 0.0, "D": 0.0, "A": 0.0, "n": 0.0}}
+        deck["residuals"]["local residual"]["type"] = "hypo_hill"
+        deck["residuals"]["local residual"]["materials"] = {"body": {**VOCE_MAT, **UNIT_R}}
     elif key == "multigrid":
         deck["linear algebra"] = {"preconditioner": "multigrid"}
     elif key == "amg":
@@ -139,5 +151,5 @@ def test_decks_outside_the_slice_fail_loudly(key):
 
 
 def test_unported_model_names_what_it_needs():
-    with pytest.raises(NotImplementedError, match="hyper_J2.*finite-deformation"):
+    with pytest.raises(NotImplementedError, match="hypo_hill.*polar rotation"):
         Problem(load_deck(_unsupported("model")), device="cpu")
