@@ -74,19 +74,23 @@ def _build_objective(spec, prob):
         if prob.qoi is None or type(prob.qoi).elem_value is QoI.elem_value:
             raise NotImplementedError(
                 "the adjoint objective needs a QoI with an element form; the calibration "
-                "and reaction-mismatch QoIs come with io/synthetic.py (ROADMAP queue 1 item 4)"
+                "and reaction-mismatch QoIs come with io/synthetic.py (ROADMAP.md queue 1, "
+                "'Drivers: FEMU recovery')"
             )
-        return AdjointObjective(prob, Adjoint(prob.assembler, prob.qoi, prob.dbcs, LinearCfg()),
-                                active), active
+        # the default LinearCfg with the problem's multigrid, as calibr8_tpu's
+        # CLI builds it (cli/main.py:118-122)
+        adj = Adjoint(prob.assembler, prob.qoi, prob.dbcs, LinearCfg(),
+                      mg_factory=prob.mg_factory)
+        return AdjointObjective(prob, adj, active), active
     if obj_type == "FEMU":
         raise NotImplementedError(
             "objective type 'FEMU' is value-only: its gradient is the optimizer's finite "
-            "differences, and it comes with the optimizer (opt/drivers.py), ROADMAP queue 1 "
-            "item 4"
+            "differences, and it comes with the optimizer (opt/drivers.py; ROADMAP.md queue 1, "
+            "'Drivers: FEMU recovery')"
         )
     raise NotImplementedError(
         f"objective type {obj_type!r} is not ported yet (the port has pdeco and adjoint; "
-        "VFM, EUCLID and the equilibrium gap are ROADMAP queue 1 item 5)"
+        "VFM, EUCLID and the equilibrium gap are ROADMAP.md queue 1, 'VFM / EUCLID')"
     )
 
 
@@ -122,7 +126,8 @@ def cmd_inverse(args) -> int:
     if not inverse.get("check gradient", False) or int(inverse.get("iteration limit", 0)) > 0:
         raise NotImplementedError(
             "the optimizer of 'inverse' ('iteration limit' > 0, or no 'check gradient'; "
-            "calibr8_tpu opt/drivers.py) is not ported yet: ROADMAP queue 1 item 4"
+            "calibr8_tpu opt/drivers.py) is not ported yet: ROADMAP.md queue 1, "
+            "'Drivers: FEMU recovery'"
         )
     if spec.disc.get("fields file"):
         raise NotImplementedError("'fields file' (io/synthetic.py) is not ported yet")

@@ -18,6 +18,15 @@
 // every read of A and nbr is coalesced across the warp; only the reads
 // of x at neighbour ids are scattered, and they hit L2 (x is ~1 MB).
 //
+// The same kernel is calibr8_tpu's kernel 3c, the multigrid level apply
+// (LevelEllOperator, solve/ellpack.py:322-409, called from solve/mg.py):
+// a level vector is node-interleaved, x[n * m + j], which is this
+// kernel's layout with NDPN == D == m, so the level instances are
+// (m, m) = (1, 1) for the pressure chain and the fine pressure block and
+// (2, 2), (3, 3) for the displacement chains.  The levels are small
+// (125 to 35,937 nodes on the cube MG deck), so the small ones are bound
+// by the launch, not by bytes.
+//
 // C interface, bound with ctypes (calibr8_tpu_torch/solve/ellpack.py).
 
 #include <cuda_runtime.h>
@@ -63,7 +72,8 @@ int launch(int dim, int ndpn, int N, int K, const void* A_T, const void* nbr_T,
   ell_spmv_kernel<T, D, P><<<grid, block, 0, s>>>(N, K, (const T*)A_T,      \
                                                   (const int*)nbr_T,        \
                                                   (const T*)x, (T*)y)
-  if (dim == 2 && ndpn == 2) C8_LAUNCH(2, 2);
+  if (dim == 1 && ndpn == 1) C8_LAUNCH(1, 1);
+  else if (dim == 2 && ndpn == 2) C8_LAUNCH(2, 2);
   else if (dim == 2 && ndpn == 3) C8_LAUNCH(2, 3);
   else if (dim == 3 && ndpn == 3) C8_LAUNCH(3, 3);
   else if (dim == 3 && ndpn == 4) C8_LAUNCH(3, 4);
@@ -78,8 +88,9 @@ extern "C" {
 
 // device: the CUDA ordinal of the tensors (this library's runtime keeps
 // its own current device); dtype: 0 float32, 1 float64; ndpn = dim
-// (displacement-only) or dim + 1 (mixed u/p).  Returns the cudaError_t
-// of the launch (0 on success).
+// (displacement-only, or a multigrid level's m = dim = ndpn, 1 to 3) or
+// dim + 1 (mixed u/p).  Returns the cudaError_t of the launch (0 on
+// success).
 int c8_ell_spmv(int device, int dtype, int dim, int ndpn, int N, int K, const void* A_T,
                 const void* nbr_T, const void* x, void* y, void* stream) {
   cudaError_t err = cudaSetDevice(device);

@@ -22,6 +22,12 @@
 // table (K, N); the atomics into y (~1 MB, L2-resident) are the scattered
 // part.
 //
+// Kernel 3c's TPU pair held both directions (_kernel_pair, ellpack.py:
+// 513-524), so this kernel also takes the level shapes (NDPN == D == m,
+// node-interleaved, with the (1, 1) instance for the pressure chain).
+// The multigrid cycle itself applies only the forward level operator:
+// its transposed cycle is built from swapped element blocks.
+//
 // C interface, bound with ctypes (calibr8_tpu_torch/solve/ellpack.py).
 
 #include <cuda_runtime.h>
@@ -64,7 +70,8 @@ int launch(int dim, int ndpn, int N, int K, const void* A_T, const void* nbr_T,
   ell_spmv_T_kernel<T, D, P><<<grid, block, 0, s>>>(N, K, (const T*)A_T,      \
                                                     (const int*)nbr_T,        \
                                                     (const T*)x, (T*)y)
-  if (dim == 2 && ndpn == 2) C8_LAUNCH(2, 2);
+  if (dim == 1 && ndpn == 1) C8_LAUNCH(1, 1);
+  else if (dim == 2 && ndpn == 2) C8_LAUNCH(2, 2);
   else if (dim == 2 && ndpn == 3) C8_LAUNCH(2, 3);
   else if (dim == 3 && ndpn == 3) C8_LAUNCH(3, 3);
   else if (dim == 3 && ndpn == 4) C8_LAUNCH(3, 4);
@@ -79,7 +86,8 @@ extern "C" {
 
 // device: the CUDA ordinal of the tensors (this library's runtime keeps
 // its own current device); dtype: 0 float32, 1 float64; ndpn = dim
-// (displacement-only) or dim + 1 (mixed u/p).  y must hold zeros.
+// (displacement-only, or a multigrid level's m = dim = ndpn, 1 to 3) or
+// dim + 1 (mixed u/p).  y must hold zeros.
 // Returns the cudaError_t of the launch (0 on success).
 int c8_ell_spmv_T(int device, int dtype, int dim, int ndpn, int N, int K, const void* A_T,
                   const void* nbr_T, const void* x, void* y, void* stream) {

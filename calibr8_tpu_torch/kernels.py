@@ -10,6 +10,9 @@ per source, all started together.
 
 Every wrapper that launches a kernel adds one to `launches[name]` where
 it launches, and nowhere else; `reset_launches()` sets the counts to 0.
+A counter is named after its kernel's source, except `ell_spmv_level`:
+the multigrid level apply (calibr8_tpu's kernel 3c, LevelEllOperator)
+launches the kernels of `ell_spmv.cu` on level shapes and counts apart.
 """
 
 from __future__ import annotations
@@ -33,7 +36,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 
-launches = {name: 0 for name in KERNELS}
+COUNTERS = KERNELS + ("ell_spmv_level",)
+
+launches = {name: 0 for name in COUNTERS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _funcs: dict[str, object] = {}

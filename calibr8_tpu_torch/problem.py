@@ -9,6 +9,8 @@ raise NotImplementedError naming it.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -18,6 +20,7 @@ from calibr8_tpu_torch.fem.disc import Disc
 from calibr8_tpu_torch.fem.fused_assembly import FusedAssembler
 from calibr8_tpu_torch.mechanics.global_residual import MechanicsSpec
 from calibr8_tpu_torch.mesh import generators
+from calibr8_tpu_torch.mesh.refine import uniform_refine
 from calibr8_tpu_torch.models import create_local_model
 from calibr8_tpu_torch.qoi import create_qoi
 from calibr8_tpu_torch.solve.linear import LinearCfg
@@ -46,17 +49,24 @@ def build_mesh(spec: ProblemSpec, mesh=None):
         )
     bm = dict(d["builtin mesh"])
     kind = bm.pop("type")
-    if int(bm.pop("refinements", 0)):
-        raise NotImplementedError(
-            "'refinements:' (the multigrid hierarchy, mesh/refine.py) is not ported yet"
-        )
+    # 'refinements: L' solves on the L times uniformly refined mesh and
+    # keeps the chain on it as the geometric multigrid hierarchy
+    n_ref = int(bm.pop("refinements", 0))
     fn = {
         "cube": generators.cube,
         "square": generators.square,
         "notch2D": generators.notch2d,
         "notch3D": generators.notch3d,
     }[kind]
-    return fn(**bm)
+    m = fn(**bm)
+    if n_ref:
+        base, chain = m, []
+        for _ in range(n_ref):
+            chain.append(uniform_refine(m))
+            m = chain[-1].fine
+        m.refine_chain = chain
+        m.refine_base = base
+    return m
 
 
 class Problem:
@@ -75,14 +85,19 @@ class Problem:
         if gr.get("solver") == "jitted":
             raise NotImplementedError("'solver: jitted' (solve/jit_newton.py) is not ported yet")
         la = spec.linear_algebra
-        if la.get("preconditioner") in ("multigrid", "amg"):
-            raise NotImplementedError(
-                f"preconditioner {la['preconditioner']!r} (solve/mg.py, solve/amg.py, "
-                "ELL kernel 3c) is not ported yet"
-            )
-
         self.mesh = build_mesh(spec, mesh)
         dim = self.mesh.dim
+        refine_chain = getattr(self.mesh, "refine_chain", None)
+        refine_base = getattr(self.mesh, "refine_base", None)
+        precond = la.get("preconditioner")
+        if precond == "amg" or (precond == "multigrid" and not refine_chain):
+            # calibr8_tpu runs these on its aggregation AMG
+            raise NotImplementedError(
+                f"preconditioner {precond!r}"
+                + ("" if precond == "amg" else " on a mesh without 'refinements:'")
+                + " needs the aggregation AMG (solve/amg.py's AMGPrecondFactory), which is "
+                "not ported yet; geometric multigrid runs on a refined builtin mesh"
+            )
         self.model = create_local_model(spec.model_name, dim)
         self.model.abs_tol = float(lr.get("nonlinear absolute tol", 1e-12))
         self.mech_spec = MechanicsSpec(
@@ -113,11 +128,24 @@ class Problem:
             rel_tol=float(gr.get("nonlinear relative tol", 1e-8)),
             print_convergence=bool(gr.get("print convergence", False)),
             linear=LinearCfg(
-                method=la["method"], tol=la["tolerance"], max_iters=la["maximum iterations"]
+                method=la["method"], tol=la["tolerance"], max_iters=la["maximum iterations"],
+                precond_reuse=la.get("preconditioner reuse", "none"),
             ),
             line_search=_ls_params(gr.get("line search", {})),
         )
         self.step_solver = StepSolver(self.assembler, newton_cfg)
+
+        # geometric multigrid on the refinement chain (calibr8_tpu
+        # problem.py:187-206); its host setup time is kept for the record
+        self.mg_factory = None
+        self.mg_setup_s = 0.0
+        if precond == "multigrid":
+            from calibr8_tpu_torch.solve.mg import MGPrecondFactory
+
+            t0 = time.perf_counter()
+            self.mg_factory = MGPrecondFactory(self.disc, refine_chain, refine_base)
+            self.mg_setup_s = time.perf_counter() - t0
+            self.step_solver.mg_factory = self.mg_factory
 
         self.dbcs = DirichletBCs(
             self.disc,

@@ -19,6 +19,8 @@ forced to the primal's recorded path) and the QoI partials from
 QoI.partials.  The transposed solve is solve/linear.py's with
 transpose=True: for the assembled ELL operator every Krylov iteration
 applies A^T with the ell_spmv_T kernel (csrc/ell_spmv_T.cu) on the card.
+With a multigrid factory the solve is preconditioned by its mirrored
+cycle on the swapped element blocks (solve/mg.py).
 """
 
 from __future__ import annotations
@@ -60,16 +62,20 @@ def _scatter(disc, v_eT):
 class Adjoint:
     """Backward sweep driver:
 
-        adj = Adjoint(problem.assembler, problem.qoi, problem.dbcs, LinearCfg())
+        adj = Adjoint(problem.assembler, problem.qoi, problem.dbcs, LinearCfg(),
+                      mg_factory=problem.mg_factory)
         grad, zs = adj.sweep(traj, params_all, problem.time_grid)
 
     After a sweep, `step_info` holds each step's relative residual and
     Krylov iteration count (backward order)."""
 
-    def __init__(self, assembler, qoi, dbcs, linear_cfg=None):
+    def __init__(self, assembler, qoi, dbcs, linear_cfg=None, mg_factory=None):
         self.assembler = assembler
         self.qoi = qoi
         self.dbcs = dbcs
+        # multigrid for the transposed solves (the mirrored-sweep cycle,
+        # solve/mg.py); pass the problem's mg_factory, as the CLI does
+        self.mg_factory = mg_factory
         cfg = linear_cfg or linear_mod.LinearCfg()
         # the reference tightens the Belos tolerance for the adjoint and
         # runs an iterative-refinement loop (adjoint.cpp:41-49,113-180)
@@ -105,9 +111,16 @@ class Adjoint:
             J_total_T = B["J_total_T"]
             diag = _scatter(disc, torch.diagonal(J_total_T, 0, 0, 1).T)
         with timers.phase("adjoint/krylov", dev):
+            mg, mg_state = self.mg_factory, None
+            if self.linear_cfg.precond_reuse == "step" and mg is not None and mg.recursive:
+                # the transposed hierarchy state is built apart from the
+                # solve (calibr8_tpu solve/adjoint.py:219-235); one solve
+                # per step, so it is used once
+                mg_state = linear_mod.mg_make_state(self.linear_cfg, J_total_T, disc, diag,
+                                                    bc_dofs, mg, transpose=True)
             z, relres, ki = linear_mod.solve_info(
                 self.linear_cfg, J_total_T, disc, diag, rhs, bc_dofs, transpose=True,
-                return_iters=True,
+                return_iters=True, mg=mg, mg_state=mg_state,
             )
         with timers.phase("adjoint/post", dev):
             z_eT = z[disc.edofs].T  # (nde, n_elem)

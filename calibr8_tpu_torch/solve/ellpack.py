@@ -20,6 +20,13 @@ column order); calibr8_tpu's stencil canonicalization
 is not carried over.  Assembly A_T <- J_T is one index_add_ over the
 host-built flat slot ids (the scatter-offsets analog), once per Newton
 iteration.
+
+LevelEllOperator is the same matrix form for one multigrid level
+(calibr8_tpu's kernel 3c): node blocks of width m (dim for the
+displacement chain, 1 for the pressure chain) on node-interleaved
+vectors x[n * m + j], assembled from element blocks (npe*m, npe*m, E),
+with no Dirichlet rows.  Its apply launches the ell_spmv kernel's (m, m)
+instance on the card and counts as `ell_spmv_level`.
 """
 
 from __future__ import annotations
@@ -64,38 +71,53 @@ def ell_maps_from_conn(conn, n_nodes: int) -> dict:
     return dict(nbr=nbr, ell_ids_T=ell_ids_T, K=K)
 
 
+def ell_device_maps(conn, n_nodes: int, device) -> dict:
+    """ell_maps_from_conn with the device tensors the operators use:
+    nbr_T (K, n) int32 and ids_T int64."""
+    maps = ell_maps_from_conn(conn, n_nodes)
+    maps["nbr_T"] = torch.as_tensor(
+        np.ascontiguousarray(maps["nbr"].T), dtype=torch.int32, device=device
+    )
+    maps["ids_T"] = torch.as_tensor(maps["ell_ids_T"], dtype=torch.int64, device=device)
+    return maps
+
+
 def build_ell_maps(disc) -> dict:
-    """ELL maps of a Disc, built once on the host and cached on it, with
-    the device tensors the operator uses: nbr_T (K, n) int32 and
-    ell_ids_T int64."""
+    """ELL maps of a Disc (ell_device_maps), built once on the host and
+    cached on it."""
     cached = getattr(disc, "_ell_maps", None)
     if cached is None:
-        maps = ell_maps_from_conn(disc.mesh.conn, disc.n_nodes)
-        maps["nbr_T"] = torch.as_tensor(
-            np.ascontiguousarray(maps["nbr"].T), dtype=torch.int32, device=disc.device
-        )
-        maps["ids_T"] = torch.as_tensor(maps["ell_ids_T"], dtype=torch.int64, device=disc.device)
-        disc._ell_maps = cached = maps
+        disc._ell_maps = cached = ell_device_maps(disc.mesh.conn, disc.n_nodes, disc.device)
     return cached
 
 
-def assemble_ell_T(J_T, disc):
-    """Element Jacobians J_T (nde, nde, E) -> A_T (K, ndpn, ndpn, n_nodes).
-    One index_add_ along the node-slot axis (PyTorch's segment_sum)."""
-    maps = build_ell_maps(disc)
-    npe, ndpn, K, n, E = disc.spec.npe, disc.ndpn, maps["K"], disc.n_nodes, disc.n_elem
+def assemble_ell_T_blocks(JT, ids_T, K: int, n_nodes: int, m: int):
+    """Element blocks JT (npe*m, npe*m, E), node-interleaved, -> A_T
+    (K, m, m, n_nodes), with the (a, b, e)-ordered slot ids of
+    ell_maps_from_conn: one index_add_ along the node-slot axis
+    (PyTorch's segment_sum).  calibr8_tpu's assemble_ell_T_blocks
+    (solve/ellpack.py:284)."""
+    E = JT.shape[-1]
+    npe = JT.shape[0] // m
     # (a, i, b, j, e) -> (i, j, a, b, e): column order (a, b, e) of ids_T
-    V = J_T.reshape(npe, ndpn, npe, ndpn, E).permute(1, 3, 0, 2, 4).reshape(ndpn * ndpn, -1)
-    A2 = torch.zeros(ndpn * ndpn, K * n, dtype=J_T.dtype, device=J_T.device)
-    A2.index_add_(1, maps["ids_T"], V)
-    return A2.reshape(ndpn, ndpn, K, n).permute(2, 0, 1, 3).contiguous()
+    V = JT.reshape(npe, m, npe, m, E).permute(1, 3, 0, 2, 4).reshape(m * m, -1)
+    A2 = torch.zeros(m * m, K * n_nodes, dtype=JT.dtype, device=JT.device)
+    A2.index_add_(1, ids_T, V)
+    return A2.reshape(m, m, K, n_nodes).permute(2, 0, 1, 3).contiguous()
+
+
+def assemble_ell_T(J_T, disc):
+    """Element Jacobians J_T (nde, nde, E) -> A_T (K, ndpn, ndpn, n_nodes)."""
+    maps = build_ell_maps(disc)
+    return assemble_ell_T_blocks(J_T, maps["ids_T"], maps["K"], disc.n_nodes, disc.ndpn)
 
 
 _ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
 
 
-def _launch(name, symbol, A_T, nbr_T, x, dim, y):
-    """Check the inputs of an ELL kernel and launch it into y."""
+def _launch(name, symbol, A_T, nbr_T, x, dim, y, counter=None):
+    """Check the inputs of an ELL kernel of library `name` and launch it
+    into y; the launch counts under `counter` (default: `name`)."""
     req = kernels.require
     K, ndpn, _, n = A_T.shape
     req(A_T.shape == (K, ndpn, ndpn, n), f"A_T has shape {tuple(A_T.shape)}")
@@ -112,7 +134,7 @@ def _launch(name, symbol, A_T, nbr_T, x, dim, y):
         x.data_ptr(), y.data_ptr(), kernels.stream_ptr(x.device),
     )
     kernels.check(name, err)
-    kernels.launches[name] += 1
+    kernels.launches[counter or name] += 1
     return y
 
 
@@ -134,6 +156,28 @@ def ell_spmv_T(A_T, nbr_T, x, dim: int):
         return ell_spmv_T_plain(A_T, nbr_T, x, dim)
     # zeros, not empty: the kernel adds into y
     return _launch("ell_spmv_T", "c8_ell_spmv_T", A_T, nbr_T, x, dim, torch.zeros_like(x))
+
+
+def level_ell_spmv(A_T, nbr_T, x, m: int):
+    """y = A x on one multigrid level (kernel 3c): A_T (K, m, m, n), x and
+    y node-interleaved (n * m,).  On CUDA tensors this launches the
+    ell_spmv kernel's (m, m) instance, counted as `ell_spmv_level` (or
+    raises); on CPU tensors it runs the plain version."""
+    if not x.is_cuda:
+        return level_ell_spmv_plain(A_T, nbr_T, x, m)
+    return _launch("ell_spmv", "c8_ell_spmv", A_T, nbr_T, x, m, torch.empty_like(x),
+                   counter="ell_spmv_level")
+
+
+def level_ell_spmv_plain(A_T, nbr_T, x, m: int):
+    """The plain PyTorch version of level_ell_spmv: calibr8_tpu's CPU
+    branch of LevelEllOperator (solve/ellpack.py:408), the neighbour
+    values gathered slot-major (a zero row for the pad slots), then
+    y[i, n] = sum_{s, j} A[s, i, j, n] G[s, j, n]."""
+    n = A_T.shape[-1]
+    X = torch.cat([x.reshape(n, m), torch.zeros(1, m, dtype=x.dtype, device=x.device)])
+    G_T = X[nbr_T.long()].permute(0, 2, 1)  # (K, m, n)
+    return torch.einsum("sijn,sjn->in", A_T, G_T).T.reshape(-1)
 
 
 def _node_matrix(x, n, dim, ndpn):
@@ -194,3 +238,27 @@ class EllOperator:
         apply = ell_spmv_T if self.transpose else ell_spmv
         y = apply(self.A_T, self.nbr_T, v, self.disc.spec.dim)
         return apply_dbcs_matvec(y, self.diag, v, self.bc_dofs)
+
+
+class LevelEllOperator:
+    """y = A_l x for one multigrid level, assembled once per hierarchy
+    build from element blocks JT (npe*m, npe*m, E) with the level's ELL
+    maps (ell_device_maps of its mesh): calibr8_tpu's LevelEllOperator
+    (solve/ellpack.py:322-409).  No Dirichlet rows: level operators are
+    Galerkin products of already masked fine blocks.  from_assembled
+    rebuilds the operator from a stored A_T (the preconditioner state of
+    `precond reuse: step`)."""
+
+    def __init__(self, JT, maps, n_nodes: int, m: int):
+        self.A_T = assemble_ell_T_blocks(JT, maps["ids_T"], maps["K"], n_nodes, m)
+        self.nbr_T = maps["nbr_T"]
+        self.m = m
+
+    @classmethod
+    def from_assembled(cls, A_T, maps, m: int):
+        self = cls.__new__(cls)
+        self.A_T, self.nbr_T, self.m = A_T, maps["nbr_T"], m
+        return self
+
+    def __call__(self, v):
+        return level_ell_spmv(self.A_T, self.nbr_T, v, self.m)

@@ -10,6 +10,10 @@ applies the element Jacobians directly (fem/ebe_matvec.py); on the card
 each is a CUDA kernel, on the CPU its plain version.  The transposed
 solves of the adjoint apply A^T of the same assembled matrix (the
 ell_spmv_T kernel), or the EBE kernel on transposed element blocks.
+Given a multigrid factory (solve/mg.py), GMRES is preconditioned with
+its cycle instead of block Gauss-Seidel, built from the (transposed)
+element blocks per solve, or from a state built once per Newton step
+(LinearCfg.precond_reuse "step", mg_make_state).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from calibr8_tpu_torch.fem.bcs import apply_dbcs_dense, apply_dbcs_matvec
 from calibr8_tpu_torch.solve.ellpack import EllOperator
 from calibr8_tpu_torch.solve.gmres import gmres_cycle, pcg
 from calibr8_tpu_torch.solve.precond import BlockJacobiGS
+from calibr8_tpu_torch.utils import timers
 
 
 @dataclass(frozen=True)
@@ -41,17 +46,37 @@ class LinearCfg:
     # max_iters budget: the adjoint solve's refinement loop
     # (adjoint.cpp:113-180); Adjoint asks for at least 2
     refine_iters: int = 0
+    # multigrid hierarchy reuse (the MueLu reuse discipline): 'none'
+    # rebuilds the cycle's coarse arrays in every solve; 'step' builds
+    # them once per Newton step from its first Jacobian (mg_make_state)
+    # and lags them across the step's iterations, while the fine
+    # operator stays current and convergence is checked on the true
+    # residual.  Deck: linear algebra: {preconditioner reuse: step}
+    precond_reuse: str = "none"
 
 
 def _norm(v) -> float:
     return float(torch.linalg.vector_norm(v))
 
 
+def mg_make_state(cfg: LinearCfg, J_T, disc, diag, bc_dofs, mg, transpose: bool = False):
+    """The multigrid state for solve_info(mg_state=...), built with the
+    operator and element blocks solve_info would use (calibr8_tpu
+    solve/linear.py:74-100): the transposed system's blocks are swapped
+    before the hierarchy sees them."""
+    op_T = J_T.transpose(0, 1) if transpose else J_T
+    op = _operator(cfg, J_T, disc, diag, bc_dofs, transpose)
+    with timers.phase("mg/state", disc.device):
+        return mg.make_state(op_T, diag, bc_dofs, op, transpose=transpose)
+
+
 def solve_info(cfg: LinearCfg, J_T, disc, diag, b, bc_dofs, transpose: bool = False,
-               return_iters: bool = False):
+               return_iters: bool = False, mg=None, mg_state=None):
     """Solve J x = b with Dirichlet rows replaced by diag * x_row = b_row;
     J_T (nde, nde, E) element Jacobians.  transpose=True solves J^T x = b
-    (the adjoint system: transpose first, then eliminate rows).
+    (the adjoint system: transpose first, then eliminate rows).  `mg`, a
+    multigrid factory, preconditions the Krylov solve with its cycle
+    (from `mg_state` when given); the dense path ignores it.
 
     Returns (x, relres) with relres = ||b - J x|| / ||b|| from the true
     residual (the Belos status-check analog), plus the total Krylov
@@ -73,7 +98,7 @@ def solve_info(cfg: LinearCfg, J_T, disc, diag, b, bc_dofs, transpose: bool = Fa
     if method not in ("gmres", "cg"):
         raise NotImplementedError(f"linear algebra method {method!r} is not ported")
 
-    op, M = _gmres_setup(cfg, J_T, disc, diag, bc_dofs, transpose)
+    op, M = _gmres_setup(cfg, J_T, disc, diag, bc_dofs, transpose, mg, mg_state)
 
     if method == "cg":
         x, _ = pcg(op, b, M, cfg.tol, cfg.max_iters)
@@ -125,20 +150,30 @@ def solve_info(cfg: LinearCfg, J_T, disc, diag, b, bc_dofs, transpose: bool = Fa
     return (x, relres, ki) if return_iters else (x, relres)
 
 
-def _gmres_setup(cfg, J_T, disc, diag, bc_dofs, transpose):
-    """Krylov operator + preconditioner.  The ELL operator assembles the
-    forward J_T either way and applies A^T with the ell_spmv_T kernel
-    when transposed; the EBE operator applies the transposed element
-    blocks (a transposed copy of J_T)."""
+def _operator(cfg, J_T, disc, diag, bc_dofs, transpose):
+    """The Krylov operator.  The ELL operator assembles the forward J_T
+    either way and applies A^T with the ell_spmv_T kernel when
+    transposed; the EBE operator applies the transposed element blocks
+    (a transposed copy of J_T)."""
     if cfg.operator != "ebe":
-        op = EllOperator(disc, J_T, diag, bc_dofs, transpose=transpose)
-    else:
-        op_T = J_T.transpose(0, 1).contiguous() if transpose else J_T
+        return EllOperator(disc, J_T, diag, bc_dofs, transpose=transpose)
+    op_T = J_T.transpose(0, 1).contiguous() if transpose else J_T
 
-        def op(v):
-            return apply_dbcs_matvec(ebe_matvec_T(op_T, disc, v), diag, v, bc_dofs)
+    def op(v):
+        return apply_dbcs_matvec(ebe_matvec_T(op_T, disc, v), diag, v, bc_dofs)
 
-    if cfg.preconditioner == "block_gs":
+    return op
+
+
+def _gmres_setup(cfg, J_T, disc, diag, bc_dofs, transpose, mg=None, mg_state=None):
+    """Krylov operator + preconditioner."""
+    op = _operator(cfg, J_T, disc, diag, bc_dofs, transpose)
+    if mg is not None:
+        # the multigrid cycle of the (transposed) element blocks
+        op_T = J_T.transpose(0, 1) if transpose else J_T
+        with timers.phase("mg/make", disc.device):
+            M = mg.make(op_T, diag, bc_dofs, op, transpose=transpose, state=mg_state)
+    elif cfg.preconditioner == "block_gs":
         # transpose solves use the TRANSPOSED forward preconditioner
         M = BlockJacobiGS(disc, J_T, diag, bc_dofs, transpose=transpose)
     elif cfg.preconditioner == "jacobi":
@@ -149,7 +184,8 @@ def _gmres_setup(cfg, J_T, disc, diag, bc_dofs, transpose):
 
     else:
         raise NotImplementedError(
-            f"preconditioner {cfg.preconditioner!r} is not ported: multigrid and "
-            "amg (solve/mg.py, solve/amg.py, ELL kernel 3c) come in a later slice"
+            f"preconditioner {cfg.preconditioner!r} is not ported: geometric multigrid "
+            "comes as a factory (solve/mg.py, Problem.mg_factory); aggregation AMG "
+            "(solve/amg.py's AMGPrecondFactory) is not ported yet"
         )
     return op, M

@@ -70,8 +70,14 @@ class StepSolver:
     def __init__(self, assembler, cfg: NewtonCfg):
         self.assembler = assembler
         self.cfg = cfg
-        # Krylov iterations of each linear solve of the last step
+        # the multigrid preconditioner factory (solve/mg.py; Problem sets
+        # it), and its state for the current step under `precond reuse: step`
+        self.mg_factory = None
+        self._mg_state = None
+        # Krylov iterations and relative residual of each linear solve of
+        # the last step
         self.krylov_iters: list[int] = []
+        self.linear_relres: list[float] = []
 
     def _assemble(self, x, x_prev, xi_prev, params, bc_dofs, bc_vals, ext_force):
         R, J_T, diag, xi, path, nfail = self.assembler.assemble(x, xi_prev, params,
@@ -90,10 +96,23 @@ class StepSolver:
         """Solve J dx = -R."""
         dx, relres, ki = linear_mod.solve_info(
             self.cfg.linear, base["J_T"], self.assembler.disc, base["diag"], -base["R"],
-            bc_dofs, return_iters=True,
+            bc_dofs, return_iters=True, mg=self.mg_factory, mg_state=self._mg_state,
         )
         self.krylov_iters.append(ki)
+        self.linear_relres.append(relres)
         return self._check_linear(dx, relres)
+
+    def _maybe_build_mg_state(self, base, bc_dofs):
+        """`precond reuse: step`: the recursive multigrid's coarse arrays
+        are built once per Newton step from the base Jacobian and lag
+        across the step's iterations (calibr8_tpu solve/newton.py:
+        152-170).  The fine operator stays current and GMRES checks the
+        true residual, so the lag moves iteration counts, not results."""
+        self._mg_state = None
+        mg = self.mg_factory
+        if self.cfg.linear.precond_reuse == "step" and mg is not None and mg.recursive:
+            self._mg_state = linear_mod.mg_make_state(
+                self.cfg.linear, base["J_T"], self.assembler.disc, base["diag"], bc_dofs, mg)
 
     def _check_linear(self, dx, relres):
         """Belos-status-check analog (linear_solve.cpp:106-123): a diverged
@@ -115,6 +134,7 @@ class StepSolver:
         dev = self.assembler.disc.device
         t0 = time.perf_counter()
         self.krylov_iters = []
+        self.linear_relres = []
         if do_print:
             print(f"ON PRIMAL STEP ({step})")
 
@@ -122,6 +142,8 @@ class StepSolver:
             base = self._assemble(x, x_prev, xi_prev, params, bc_dofs, bc_vals, ext_force)
         if base["nfail"] > 0:
             raise NewtonSolveError(f"primal step {step}: local solve failed at the base point")
+        with timers.phase("primal/mg_state", dev):
+            self._maybe_build_mg_state(base, bc_dofs)
 
         converged = False
         resid_norm_0 = 1.0
@@ -192,5 +214,5 @@ class StepSolver:
         # host wall time of the step; the final norm was read back, so
         # the card has finished the step's work
         info = dict(iterations=it, resid_norm=base["norm"], krylov_iters=list(self.krylov_iters),
-                    seconds=time.perf_counter() - t0)
+                    linear_relres=list(self.linear_relres), seconds=time.perf_counter() - t0)
         return x, base["xi"], base["path"], info

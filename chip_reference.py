@@ -5,6 +5,7 @@ full-width decks: the values chip_smoke.py holds the port to.
     JAX_PLATFORMS=cpu python3 chip_reference.py [plane_stress] [hill] [hyper_plane_stress]
     JAX_PLATFORMS=cpu python3 chip_reference.py adjoint DIR [bench] [hill] [hyper]
     python3 chip_reference.py sweep DIR [bench] [hill] [hyper]
+    JAX_PLATFORMS=cpu python3 chip_reference.py mg DIR [cube] [cube_step] [notch] [adjoint]
 
 The first form runs each named deck (all by default) through
 calibr8_tpu's Problem(...).solve_primal() and prints one JSON line per
@@ -26,7 +27,19 @@ trajectory saved in DIR/adjoint_ref_<name>.npz, and prints one JSON line
 per deck with the canonical gradient against calibr8_tpu's.  It needs
 the card and no JAX.
 
-The first two need JAX and the calibr8_tpu package; chip_smoke.py itself
+The fourth runs calibr8_tpu's geometric-multigrid decks of chip_smoke.py
+(mg_cube_deck with `preconditioner reuse` none and step, mg_notch_deck,
+and dJ/dp of adjoint_deck("mg") with Adjoint(mg_factory=...)), all by
+default, and prints one JSON line per deck (also written to
+DIR/mg_ref_<name>.json) with J or the gradient, the Newton iterations of
+each load step, the Krylov iterations and relative residual of every
+linear solve (transposed ones for the adjoint) and the wall times.  It
+counts the solves by wrapping calibr8_tpu.solve.linear.solve_info from
+outside (return_iters), and runs the adjoint step unjitted so that the
+counts are concrete.  Run the names as parallel processes to save wall
+time.
+
+The first, second and fourth need JAX and the calibr8_tpu package; chip_smoke.py itself
 imports neither.  Full-width decks are for a machine with the memory and the
 minutes for them (the primal of one such deck took 400-800 s on an 8-core
 CPU).
@@ -44,6 +57,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 DECKS = ("plane_stress", "hill", "hyper_plane_stress")
 ADJOINT_DECKS = ("bench", "hill", "hyper")
+MG_DECKS = ("cube", "cube_step", "notch", "adjoint")
 
 
 def primal_references(names, chip_smoke) -> None:
@@ -161,6 +175,82 @@ def sweep_on_references(names, chip_smoke, ref_dir) -> None:
                               device=torch.cuda.get_device_name(0))), flush=True)
 
 
+def mg_references(names, chip_smoke, out_dir) -> None:
+    import jax
+    import numpy as np
+
+    from calibr8_tpu.deck import load_deck
+    from calibr8_tpu.opt.objective import ActiveParams, AdjointObjective
+    from calibr8_tpu.problem import Problem
+    from calibr8_tpu.solve import linear as linear_mod
+    from calibr8_tpu.solve.adjoint import Adjoint
+    from calibr8_tpu.solve.linear import LinearCfg
+
+    solves = []
+    solve_info = linear_mod.solve_info
+
+    def counted(*args, **kwargs):
+        want = kwargs.get("return_iters", False)
+        kwargs["return_iters"] = True
+        x, rr, ki = solve_info(*args, **kwargs)
+        solves.append(dict(krylov_iterations=int(ki), relres=float(rr),
+                           transpose=bool(kwargs.get("transpose", False))))
+        return (x, rr, ki) if want else (x, rr)
+
+    linear_mod.solve_info = counted
+    os.makedirs(out_dir, exist_ok=True)
+    for name in names:
+        solves.clear()
+        t0 = time.perf_counter()
+        rec = dict(reference=name, jax=jax.__version__, cpus=os.cpu_count())
+        if name == "adjoint":
+            spec = load_deck(chip_smoke.adjoint_deck("mg"))
+            prob = Problem(spec)
+            adj = Adjoint(prob.assembler, prob.qoi, prob.dbcs, LinearCfg(),
+                          mg_factory=prob.mg_factory)
+            adj._step = adj._step_impl
+            active = ActiveParams.from_inverse_spec(
+                spec.inverse, prob.disc.elem_set_names, prob.model.param_names)
+            obj = AdjointObjective(prob, adj, active)
+            x0 = active.to_canonical(active.extract(np.asarray(prob.params0)))
+            rec["setup_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rec["J"] = float(obj.value(x0))
+            rec["primal_s"] = time.perf_counter() - t0
+            n_primal = len(solves)
+            t0 = time.perf_counter()
+            g = np.asarray(obj.gradient(x0), dtype=np.float64)
+            rec["adjoint_s"] = time.perf_counter() - t0
+            rec.update(grad=dict(zip(active.names, (float(v) for v in g))),
+                       primal_solves=solves[:n_primal], adjoint_solves=solves[n_primal:])
+        else:
+            deck = {"cube": lambda: chip_smoke.mg_cube_deck("none"),
+                    "cube_step": lambda: chip_smoke.mg_cube_deck("step"),
+                    "notch": chip_smoke.mg_notch_deck}[name]()
+            prob = Problem(load_deck(copy.deepcopy(deck)))
+            steps = []
+            solve_at_step = prob.step_solver.solve_at_step
+
+            def per_step(*args, solve_at_step=solve_at_step, steps=steps, **kwargs):
+                first = len(solves)
+                out = solve_at_step(*args, **kwargs)
+                steps.append(dict(newton_iterations=out[3]["iterations"] - 1,
+                                  solves=solves[first:]))
+                return out
+
+            prob.step_solver.solve_at_step = per_step
+            rec["setup_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            traj = prob.solve_primal()
+            rec.update(J=float(traj.J), J_steps=[float(v) for v in traj.qoi_values],
+                       solve_s=time.perf_counter() - t0, n_elem=int(prob.disc.n_elem),
+                       n_dofs=int(prob.disc.n_dofs), steps=steps)
+        line = json.dumps(rec)
+        with open(os.path.join(out_dir, f"mg_ref_{name}.json"), "w") as f:
+            f.write(line + "\n")
+        print(line, flush=True)
+
+
 def main(argv) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -177,6 +267,8 @@ def main(argv) -> int:
 
     if args[:1] == ["adjoint"]:
         adjoint_references(args[2:] or list(ADJOINT_DECKS), chip_smoke, args[1])
+    elif args[:1] == ["mg"]:
+        mg_references(args[2:] or list(MG_DECKS), chip_smoke, args[1])
     else:
         primal_references(args or list(DECKS), chip_smoke)
     return 0

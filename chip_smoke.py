@@ -6,10 +6,10 @@
 Phases, in order; any failure exits non-zero without the result lines:
 
  1. device: the card's name and power limit (nvidia-smi), the torch and
-    CUDA versions, and the build of the five CUDA kernels from
-    calibr8_tpu_torch/csrc with nvcc (one process per source, six
-    sources: the implicit assembly's Hill and hyper_J2 instances build
-    apart, in parallel), with ptxas's register and spill report.
+    CUDA versions, the build of the five CUDA libraries from
+    calibr8_tpu_torch/csrc with nvcc (one process per source, all in
+    parallel), with ptxas's register and spill report, and the two
+    multigrid meshes refined on the host.
  2. each kernel against its plain PyTorch version, in float32 and
     float64, at the shapes of the full-width problems, in states with
     plastic and elastic elements: the slice-1 kernels at cube n=32,
@@ -20,7 +20,12 @@ Phases, in order; any failure exits non-zero without the result lines:
     cases with x != x_prev; the EBE and both ELL kernels held once more
     at notch2D's shapes (nde = 6, ndpn = 2, and nde = 9, ndpn = 3).
     The transposed ELL kernel (3b) is also held, with the whole transposed
-    operator, at the bench deck's shapes.
+    operator, at the bench deck's shapes.  The multigrid level apply
+    (kernel 3c: the ell_spmv kernel's (m, m) instances, and ell_spmv_T's
+    the same way) is held on the level matrices that make_state builds:
+    the cube MG deck's fine pressure block (m = 1, 35,937 nodes) and its
+    level 1 (m = 3 and m = 1, 4,913 nodes), the notch2D MG deck's level 1
+    (m = 2).
     Each record: max error relative to max|plain|, the kernel's time per
     call (CUDA events around back-to-back calls), the plain version's, a
     one-call PyTorch yardstick where one exists, the least time the card
@@ -38,16 +43,26 @@ Phases, in order; any failure exits non-zero without the result lines:
     h=0.004 small_hill_plane_stress and hyper_J2_plane_stress
     ('mechanics_plane_stress', 2 load steps).  Each run's launch counts
     are set to 0 just before it and read just after; J is held at rel
-    1e-6 to its reference.
+    1e-6 to its reference.  Then (4b) the multigrid decks, GMRES with
+    the recursive geometric multigrid: cube n=4 refined 3 times (196,608
+    tets, small_J2 at the bench deck's constants, mixed u/p: u and p
+    chains) with `preconditioner reuse` none and step, and notch2D
+    h=0.032 refined 3 times (139,008 triangles, small_hill_plane_stress);
+    every linear solve must reach its tolerance, J within rel 1e-6 of
+    calibr8_tpu's (J_REF_MG_*), 3a and 3c launched.
  5. the adjoint (float64), through AdjointObjective's value and
     gradient: (a) against finite differences, log10 error drop > 6: the
     notch2D small_J2 8-step deck and the hyper_J2_plane_stress twin case
     on notch2D h=0.12 (fd_decks); (b) the bench deck, (c) cube n=32
     small_hill and (d) cube n=32 hyper_J2 (adjoint_deck), dJ/dp held at
     1e-5 to calibr8_tpu's (G_REF_*), every adjoint relative residual
-    <= 0.5, ell_spmv_T launched.  Launch counts as in phase 4.
+    <= 0.5, ell_spmv_T launched; (e) dJ/dp of the cube MG deck with the
+    multigrid transposed solves (Adjoint(mg_factory=...)), reuse none and
+    step, every transposed solve at its tolerance, within 1e-5 of
+    calibr8_tpu's G_REF_MG, step equal to none to 1e-9.  Launch counts as
+    in phase 4.
  6. one JSON line listing every ported kernel (launches: the sum over
-    the runs of phases 4 and 5b-5d), the card's name and power limit,
+    the runs of phases 4, 4b and 5b-5e), the card's name and power limit,
     and the `ok` line last.
 
 The script imports nothing of JAX or of calibr8_tpu.  Kernel builds go to
@@ -125,6 +140,28 @@ G_REF_HILL_N32 = {
     "body/Y": 0.0003619588017463349, "body/R00": 1.0362846637154069e-06,
     "body/R11": 0.0003764461621321883, "body/R01": 1.0438138211788746e-09,
     "body/S": 7.283840090641543e-06, "body/D": 7.094191925924717e-06,
+}
+
+# J of the multigrid decks (mg_cube_deck("none"), mg_cube_deck("step"),
+# mg_notch_deck()) and dJ/dp of adjoint_deck("mg") (with Adjoint(mg_factory=
+# ...) and the default LinearCfg) from calibr8_tpu (JAX 0.9.0) on the 8-core
+# CPU of the machine with the card: chip_reference.py mg, the four decks as
+# parallel processes (640 s).  Every linear solve of calibr8_tpu reached its
+# tolerance: Krylov iterations per solve, load step 1 | 2,
+#   cube none  17 30 | 30 45          (solve 389.7 s; steps 9.090909310879755e-04,
+#                                      1.0606060622828921e-03)
+#   cube step  17 38 | 30 48          (377.2 s)
+#   notch      37 18 15 14 14 13 13 12 13 13 13 13 | 10 19 18 17 17 16 16 15 15 14 13 13
+#                                     (12 + 12 Newton iterations, 309.4 s; steps
+#                                      2.1342881372587103e-03, 4.9433022092596444e-03)
+#   adjoint    primal as cube none; transposed solves 51 (step 2), 49 (step 1),
+#              relres 8.9e-10, 6.7e-10 (primal 382.9 s, adjoint 230.7 s)
+J_REF_MG_CUBE = 1.9696969933708677e-03
+J_REF_MG_CUBE_STEP = 1.9696969932754167e-03
+J_REF_MG_NOTCH = 7.077590346518355e-03
+G_REF_MG = {
+    "body/E": -0.00035812671960819785, "body/nu": -0.0003939393928018927,
+    "body/K": 5.509641796434722e-05, "body/Y": 0.0003030303095637189,
 }
 
 LR_TOL = {
@@ -212,16 +249,19 @@ ADJOINT_ACTIVE = {
     "bench": ("E", "nu", "K", "Y"),
     "hill": ("E", "nu", "Y", "S", "D", "R00", "R11", "R01"),
     "hyper": ("E", "nu", "K", "Y"),
+    "mg": ("E", "nu", "K", "Y"),
 }
 
 
 def adjoint_deck(name: str) -> dict:
-    """The full-width deck `name` (the bench deck, hill_deck(32) or
-    hyper_deck(32)) with an `inverse` sublist: the parameters of
-    ADJOINT_ACTIVE[name] active over [0.8, 1.2] times their deck values."""
+    """The full-width deck `name` (the bench deck, hill_deck(32),
+    hyper_deck(32) or, for "mg", mg_cube_deck()) with an `inverse`
+    sublist: the parameters of ADJOINT_ACTIVE[name] active over [0.8, 1.2]
+    times their deck values."""
     from calibr8_tpu_torch.profile_primal import bench_deck
 
-    deck = {"bench": bench_deck, "hill": hill_deck, "hyper": hyper_deck}[name](32)
+    deck = {"bench": lambda: bench_deck(32), "hill": lambda: hill_deck(32),
+            "hyper": lambda: hyper_deck(32), "mg": mg_cube_deck}[name]()
     mats = deck["residuals"]["local residual"]["materials"]["body"]
     deck["inverse"] = {"materials": {"body": {
         k: [0.8 * mats[k], 1.2 * mats[k]] for k in ADJOINT_ACTIVE[name]}}}
@@ -257,6 +297,31 @@ def hyper_plane_stress_deck(h: float) -> dict:
     lr = deck["residuals"]["local residual"]
     lr["type"] = "hyper_J2_plane_stress"
     lr["materials"] = {"body": dict(HYPER_PS_MAT)}
+    return deck
+
+
+def mg_cube_deck(reuse: str = "none") -> dict:
+    """The bench deck on cube n=4 refined 3 times (196,608 tets, the
+    bench's scale; nodes 125 / 729 / 4,913 / 35,937 down the chain),
+    GMRES with the recursive geometric multigrid (u and p chains), the
+    hierarchy rebuilt per solve (`none`) or once per load step (`step`)."""
+    from calibr8_tpu_torch.profile_primal import bench_deck
+
+    deck = bench_deck(4)
+    deck["discretization"]["builtin mesh"]["refinements"] = 3
+    deck["linear algebra"] = {"method": "gmres", "preconditioner": "multigrid",
+                              "preconditioner reuse": reuse}
+    return deck
+
+
+def mg_notch_deck() -> dict:
+    """The small_hill_plane_stress twin case (plane_stress_deck) on
+    notch2D h=0.032 refined 3 times (2,172 x 64 = 139,008 triangles),
+    displacement only, GMRES with the recursive geometric multigrid and
+    the default 200-iteration cap."""
+    deck = plane_stress_deck(0.032)
+    deck["discretization"]["builtin mesh"]["refinements"] = 3
+    deck["linear algebra"] = {"method": "gmres", "preconditioner": "multigrid"}
     return deck
 
 
@@ -351,7 +416,15 @@ KERNELS = {
                  "calibr8_tpu/solve/ellpack.py:491"),
     "ell_spmv_T": ("calibr8_tpu_torch/csrc/ell_spmv_T.cu",
                    "calibr8_tpu/solve/ellpack.py:456"),
+    # kernel 3c: the multigrid level apply (LevelEllOperator,
+    # ellpack.py:322-409) through the same pallas_call as 3a; the kernels
+    # line carries the cube MG deck's fine pressure block (LEVEL_TIMED),
+    # the other levels and the transposed instance are in the phase-2
+    # records
+    "ell_spmv_level": ("calibr8_tpu_torch/csrc/ell_spmv.cu",
+                       "calibr8_tpu/solve/ellpack.py:491"),
 }
+LEVEL_TIMED = "cube MG fine p block (m=1, 35937 nodes)"
 LIMITS = {"float64": 1e-12, "float32": 1e-5}
 
 
@@ -969,6 +1042,20 @@ def full_width_runs(meshes):
     ]
 
 
+def mg_runs(meshes):
+    """(label, deck, mesh, calibr8_tpu's J, kernels the run must launch) of
+    phase 4b: the cube MG deck with the hierarchy rebuilt per solve and
+    once per load step, and the notch2D MG deck."""
+    return [
+        ("cube n=4 refinements 3 small_J2, reuse none", mg_cube_deck("none"), meshes["mg_cube"],
+         J_REF_MG_CUBE, ["fused_assembly", "ell_spmv", "ell_spmv_level"]),
+        ("cube n=4 refinements 3 small_J2, reuse step", mg_cube_deck("step"), meshes["mg_cube"],
+         J_REF_MG_CUBE_STEP, ["fused_assembly", "ell_spmv", "ell_spmv_level"]),
+        ("notch2D h=0.032 refinements 3 small_hill_plane_stress", mg_notch_deck(),
+         meshes["mg_notch"], J_REF_MG_NOTCH, ["implicit_assembly", "ell_spmv", "ell_spmv_level"]),
+    ]
+
+
 def adjoint_objective(deck, mesh=None, linear_cfg=None):
     """The CLI's `pdeco` objective on the card: (problem, adjoint,
     objective, x0 at the deck's parameters)."""
@@ -980,7 +1067,8 @@ def adjoint_objective(deck, mesh=None, linear_cfg=None):
 
     spec = load_deck(copy.deepcopy(deck))
     prob = Problem(spec, mesh=mesh, device=DEVICE, dtype=torch.float64)
-    adj = Adjoint(prob.assembler, prob.qoi, prob.dbcs, linear_cfg or LinearCfg())
+    adj = Adjoint(prob.assembler, prob.qoi, prob.dbcs, linear_cfg or LinearCfg(),
+                  mg_factory=prob.mg_factory)
     active = ActiveParams.from_inverse_spec(spec.inverse, prob.disc.elem_set_names,
                                             prob.model.param_names)
     obj = AdjointObjective(prob, adj, active)
@@ -1085,6 +1173,209 @@ def phase_adjoint_full_width(name, mesh, g_ref):
     return ok, counts
 
 
+def check_level_apply(label, A_T, nbr_T, m, results):
+    """Kernel 3c (the multigrid level apply, LevelEllOperator) against its
+    plain version on one level's assembled matrix A_T (K, m, m, n), in
+    float64 and (the same matrix rounded) float32, forward, with the
+    ell_spmv_T kernel's level instance held the same way; each with its
+    time, bound (the filled slots' blocks, nbr_T and the vectors) and the
+    torch.sparse CSR mv of the same matrix."""
+    from calibr8_tpu_torch.solve.ellpack import (
+        ell_spmv_T, ell_spmv_T_plain, level_ell_spmv, level_ell_spmv_plain,
+    )
+
+    K, _, _, n = A_T.shape
+    ok = True
+    for dtype in (torch.float64, torch.float32):
+        dn = str(dtype).split(".")[1]
+        w = 4 if dtype == torch.float32 else 8
+        lim = LIMITS[dn]
+        A = A_T.to(dtype).contiguous()
+        gen = torch.Generator(device=DEVICE).manual_seed(3)
+        v = torch.randn(n * m, generator=gen, device=DEVICE, dtype=dtype)
+        rec = dict(kernel="ell_spmv_level", case=label, dtype=dn, m=m, nodes=n, K=K, limit=lim)
+        for direction, fk, fp in (
+            ("forward", lambda: level_ell_spmv(A, nbr_T, v, m),
+             lambda: level_ell_spmv_plain(A, nbr_T, v, m)),
+            ("transposed", lambda: ell_spmv_T(A, nbr_T, v, m), lambda: ell_spmv_T_plain(A, nbr_T, v, m)),
+        ):
+            yp = fp()
+            err, aerr = rel_err(fk(), yp)
+            csr, nnz_slots = ell_csr(A, nbr_T, m, n * m, transpose=direction == "transposed")
+            lms = time_ms(lambda: torch.mv(csr, v), 30)
+            err_lib = rel_err(torch.mv(csr, v), yp)[0]
+            del csr
+            nbytes = nnz_slots * m * m * w + K * n * 4 + 2 * n * m * w
+            b_ms, b_by = bound(nbytes, 2.0 * m * m * nnz_slots, dn)
+            good = err <= lim
+            ok &= good
+            rec[direction] = dict(rel_err=err, max_abs_err=aerr, ms=time_ms(fk, 50),
+                                  plain_ms=time_ms(fp, 10), library_ms=lms,
+                                  library_rel_err=err_lib, bound_ms=b_ms, bound_by=b_by,
+                                  filled_slots=nnz_slots, ok=good)
+        log(json.dumps(rec))
+        if not rec["forward"]["ok"] or not rec["transposed"]["ok"]:
+            log(f"FAIL ell_spmv_level {label} {dn}")
+        results[("ell_spmv_level", label, dn)] = rec
+    return ok
+
+
+def phase_level_kernels(meshes, results):
+    """Phase 2, kernel 3c: the level matrices of the recursive multigrid
+    at the MG decks' shapes, taken from the preconditioner state that
+    make_state builds from an assembled Jacobian (a deformed, partly
+    plastic state): on the cube MG deck the fine pressure block (m = 1,
+    35,937 nodes) and level 1 of both chains (m = 3 and m = 1, 4,913
+    nodes); on the notch2D MG deck level 1 (m = 2)."""
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.problem import Problem
+    from calibr8_tpu_torch.solve.ellpack import EllOperator, build_ell_maps
+
+    ok = True
+    for name, deck, mesh, scale in (("cube MG", mg_cube_deck(), meshes["mg_cube"], 0.02),
+                                    ("notch2D MG", mg_notch_deck(), meshes["mg_notch"], 0.01)):
+        prob = Problem(load_deck(copy.deepcopy(deck)), mesh=mesh, device=DEVICE,
+                       dtype=torch.float64)
+        disc, mg = prob.disc, prob.mg_factory
+        x, x_prev, xi_prev = implicit_inputs(prob, scale)
+        _, J_T, diag, _, _, _ = prob.assembler.assemble(x, xi_prev, prob.params0, x_prev=x_prev)
+        bc_dofs = prob.dbcs.arrays(1.0, 1)[0]
+        st = mg.make_state(J_T, diag, bc_dofs, EllOperator(disc, J_T, diag, bc_dofs))
+        lv = mg._pairs[0]["maps"]["nbr_T"]
+        n1 = mg._pairs[0]["n_parent_nodes"]
+        cases = [(f"{name} level 1 u (m={disc.spec.dim}, {n1} nodes)",
+                  st["u"]["levels"][0]["A_T"], lv, disc.spec.dim)]
+        if disc.spec.mixed:
+            cases += [(f"{name} level 1 p (m=1, {n1} nodes)", st["p"]["levels"][0]["A_T"], lv, 1),
+                      (f"{name} fine p block (m=1, {disc.n_nodes} nodes)", st["p_ell_A_T"],
+                       build_ell_maps(disc)["nbr_T"], 1)]
+        for label, A_T, nbr_T, m in cases:
+            ok &= check_level_apply(label, A_T, nbr_T, m, results)
+        del prob, disc, mg, st, J_T
+        torch.cuda.empty_cache()
+    return ok
+
+
+def mg_solve_records(traj):
+    """Per load step: Newton iterations, and the Krylov iterations and
+    final relative residual of each linear solve."""
+    return [dict(step=i + 1, newton_iterations=info["iterations"] - 1,
+                 krylov_iterations=info["krylov_iters"], relres=info["linear_relres"],
+                 seconds=info["seconds"], J_step=traj.qoi_values[i])
+            for i, info in enumerate(traj.newton_info)]
+
+
+def phase_mg_primal(label, deck, mesh, J_ref, needed):
+    """Phase 4b: a full-width multigrid primal solve (float64, GMRES + the
+    recursive geometric multigrid) through Problem(...).solve_primal().
+    Records the hierarchy's host setup, the per-step state build
+    (`preconditioner reuse: step`), the per-solve cycle build, the solve
+    wall, Newton and Krylov iterations and each solve's relative residual.
+    ok needs J within rel 1e-6 of calibr8_tpu's J_ref, every linear solve
+    at its tolerance (relres <= tol, not the iteration cap) and every
+    kernel of `needed` launched.  Returns (ok, launch counts)."""
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.problem import Problem
+    from calibr8_tpu_torch.utils import timers
+
+    t0 = time.perf_counter()
+    prob = Problem(load_deck(copy.deepcopy(deck)), mesh=mesh, device=DEVICE, dtype=torch.float64)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    timers.reset()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    traj = prob.solve_primal()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    lin = prob.step_solver.cfg.linear
+    rel = abs(traj.J - J_ref) / abs(J_ref)
+    steps = mg_solve_records(traj)
+    relres = [r for s in steps for r in s["relres"]]
+    summ = timers.summary()
+    rec = dict(mg_primal=label, n_elem=prob.disc.n_elem, n_dofs=prob.disc.n_dofs,
+               reuse=lin.precond_reuse, tol=lin.tol, max_iters=lin.max_iters, J=traj.J,
+               J_ref=J_ref, rel_err=rel, steps=steps, setup_s=setup_s,
+               hierarchy_setup_s=prob.mg_setup_s, solve_s=solve_s,
+               phases={k: dict(count=v["count"], total_s=v["total"]) for k, v in summ.items()},
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+    log(json.dumps(rec))
+    ok = (rel <= 1e-6 and all(r <= lin.tol for r in relres)
+          and all(counts[k] > 0 for k in needed))
+    if not ok:
+        log(f"FAIL mg primal {label}: J rel err {rel:.3e} (limit 1e-6), relres {relres} "
+            f"(tol {lin.tol}), launches {counts}")
+    return ok, counts
+
+
+def phase_mg_adjoint(mesh, g_ref):
+    """Phase 5e: dJ/dp of the cube MG deck (adjoint_deck("mg"), E, nu, K, Y
+    active) through the objective's entry points, whose transposed solves
+    run GMRES with the mirrored multigrid cycle (Adjoint(mg_factory=...)),
+    float64: with `preconditioner reuse` none (the CLI's default LinearCfg)
+    and step, on the same primal trajectory.  ok needs every transposed
+    solve at its tolerance, dJ/dp within 1e-5 (max-norm relative) of
+    calibr8_tpu's g_ref, `step` equal to `none` to 1e-9 of max|dJ/dp|, and
+    ell_spmv_T and ell_spmv_level launched.  Returns (ok, launch counts)."""
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.opt.objective import AdjointObjective
+    from calibr8_tpu_torch.solve.adjoint import Adjoint
+    from calibr8_tpu_torch.solve.linear import LinearCfg
+    from calibr8_tpu_torch.utils import timers
+
+    t0 = time.perf_counter()
+    prob, adj, obj, x0 = adjoint_objective(adjoint_deck("mg"), mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    timers.reset()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    J = obj.value(x0)
+    torch.cuda.synchronize()
+    primal_s = time.perf_counter() - t0
+    names = obj.active.names
+    ref = np.asarray([g_ref[k] for k in names])
+    rec = dict(mg_adjoint="cube n=4 refinements 3 small_J2", n_elem=prob.disc.n_elem,
+               n_dofs=prob.disc.n_dofs, names=names, J=J, setup_s=setup_s, primal_s=primal_s,
+               grad_ref=ref.tolist(), limit=1e-5)
+    grads, ok = {}, True
+    for reuse in ("none", "step"):
+        if reuse == "step":
+            adj = Adjoint(prob.assembler, prob.qoi, prob.dbcs, LinearCfg(precond_reuse="step"),
+                          mg_factory=prob.mg_factory)
+            obj2 = AdjointObjective(prob, adj, obj.active)
+            obj2._cache_x, obj2._cache_traj = obj._cache_x, obj._cache_traj
+        else:
+            obj2 = obj
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        g = obj2.gradient(x0)
+        torch.cuda.synchronize()
+        grads[reuse] = g
+        steps = [dict(step=s["step"], relres=s["relres"], krylov_iterations=s["krylov_iters"])
+                 for s in adj.step_info]
+        rel = float(np.abs(g - ref).max() / np.abs(ref).max())
+        rec[reuse] = dict(grad=[float(v) for v in g], rel_err=rel, steps=steps,
+                          sweep_s=time.perf_counter() - t0,
+                          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        ok &= (rel <= 1e-5 and bool(np.all(np.isfinite(g)))
+               and all(s["relres"] <= adj.linear_cfg.tol for s in steps))
+    diff = float(np.abs(grads["step"] - grads["none"]).max() / np.abs(grads["none"]).max())
+    counts = dict(kernels.launches)
+    summ = timers.summary()
+    rec.update(step_vs_none=diff, step_vs_none_limit=1e-9, tol=adj.linear_cfg.tol,
+               phases={k: dict(count=v["count"], total_s=v["total"]) for k, v in summ.items()},
+               launches=counts)
+    log(json.dumps(rec))
+    ok &= diff <= 1e-9 and counts["ell_spmv_T"] > 0 and counts["ell_spmv_level"] > 0
+    if not ok:
+        log("FAIL mg adjoint: see the record above")
+    return ok, counts
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -1095,7 +1386,9 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, here)
     from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.deck import load_deck
     from calibr8_tpu_torch.mesh import generators
+    from calibr8_tpu_torch.problem import build_mesh
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -1106,6 +1399,12 @@ def main(argv) -> int:
     meshes = {"cube32": generators.cube(32), "notch004": generators.notch2d(0.004)}
     log(f"meshes cube n=32 ({meshes['cube32'].n_elems} elements), notch2D h=0.004 "
         f"({meshes['notch004'].n_elems} elements): {time.perf_counter() - t0:.1f} s")
+    for key, deck in (("mg_cube", mg_cube_deck()), ("mg_notch", mg_notch_deck())):
+        t0 = time.perf_counter()
+        meshes[key] = build_mesh(load_deck(deck))
+        log(f"mesh {key}: {deck['discretization']['builtin mesh']} -> "
+            f"{meshes[key].n_elems} elements, {meshes[key].n_nodes} nodes, refined on the host "
+            f"in {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     built = kernels.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall ({json.dumps(built)})")
@@ -1117,7 +1416,8 @@ def main(argv) -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     results = {}
-    ok = phase_kernels(meshes["cube32"], results) and phase_implicit(meshes, results)
+    ok = (phase_kernels(meshes["cube32"], results) and phase_implicit(meshes, results)
+          and phase_level_kernels(meshes, results))
     log(f"phase kernels: {'ok' if ok else 'FAILED'} ({time.perf_counter() - t_start:.0f} s)")
     if not ok:
         return 1
@@ -1129,6 +1429,13 @@ def main(argv) -> int:
     for label, deck, mesh, operator, J_ref, needed in full_width_runs(meshes):
         ok, c = phase_full_width(label, deck, mesh, operator, J_ref, needed)
         log(f"phase full width, {label}, operator {operator}: {'ok' if ok else 'FAILED'} "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        if not ok:
+            return 1
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    for label, deck, mesh, J_ref, needed in mg_runs(meshes):
+        ok, c = phase_mg_primal(label, deck, mesh, J_ref, needed)
+        log(f"phase multigrid primal, {label}: {'ok' if ok else 'FAILED'} "
             f"({time.perf_counter() - t_start:.0f} s)")
         if not ok:
             return 1
@@ -1147,15 +1454,24 @@ def main(argv) -> int:
         if not ok:
             return 1
         counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    ok, c = phase_mg_adjoint(meshes["mg_cube"], G_REF_MG)
+    log(f"phase multigrid adjoint: {'ok' if ok else 'FAILED'} "
+        f"({time.perf_counter() - t_start:.0f} s)")
+    if not ok:
+        return 1
+    counts = {k: counts.get(k, 0) + v for k, v in c.items()}
 
     line = []
     timed = {"fused_assembly": ("fused_assembly", "float64"),
              "implicit_assembly": ("implicit_assembly", "cube n=32 hyper_J2", "float64"),
              "ebe_matvec": ("ebe_matvec", "float64"), "ell_spmv": ("ell_spmv", "float64"),
-             "ell_spmv_T": ("ell_spmv_T", "cube n=32 small_J2", "float64")}
+             "ell_spmv_T": ("ell_spmv_T", "cube n=32 small_J2", "float64"),
+             "ell_spmv_level": ("ell_spmv_level", LEVEL_TIMED, "float64")}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, (src, repl) in KERNELS.items():
         r = results[timed[name]]
+        if name == "ell_spmv_level":
+            r = r["forward"]
         line.append(dict(name=name, route="cuda", source=src, replaces=repl,
                          launches=counts[name], **{k: r[k] for k in keys}))
     print(json.dumps({"kernels": line}))

@@ -201,5 +201,5 @@ def test_cli_inverse_two_problems_regression(tmp_path, capsys):
                          ids=["iteration_limit", "femu"])
 def test_cli_inverse_optimizer_not_ported(tmp_path, inverse):
     deck = _write_deck(tmp_path, **{"check gradient": True, "iteration limit": 0, **inverse})
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="Drivers: FEMU recovery"):
         cli_main(["inverse", deck, "--device", "cpu"])
