@@ -11,7 +11,8 @@
 //
 // Tangent rules follow JAX's, which the reference port was checked
 // against: sqrt' = g * (0.5 / sqrt(x)); exp' = g * exp(x); log' = g / x;
-// pow(x, n)' = g * (n x^(n-1)) for a constant float n;
+// pow(x, n)' = g * (n x^(n-1)) for a constant float n; |x|' = g sign(x)
+// (0 at x == 0);
 // (a/b)' = a'/b - a b'/b^2; max0(f) = max(f, 0) and maxc(f, c) give each
 // side half the tangent at a tie.
 #pragma once
@@ -197,6 +198,28 @@ C8_HD Dual<T, N> c8_pow(const Dual<T, N>& a, T n) {
 #pragma unroll
   for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * jac;
   return r;
+}
+
+C8_HD float c8_abs(float x) { return fabsf(x); }
+C8_HD double c8_abs(double x) { return fabs(x); }
+
+template <typename T, int N>
+C8_HD Dual<T, N> c8_abs(const Dual<T, N>& a) {
+  Dual<T, N> r;
+  r.v = c8_abs(a.v);
+  const T sg = a.v > T(0) ? T(1) : (a.v < T(0) ? T(-1) : T(0));
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * sg;
+  return r;
+}
+
+template <typename T>
+C8_HD bool finite(T x) {
+#ifdef __CUDA_ARCH__
+  return isfinite(x);
+#else
+  return std::isfinite(x);
+#endif
 }
 
 // max(f, c) for a constant c (jnp.maximum(f, c)): at a tie f keeps half

@@ -4,7 +4,7 @@
 // One call handles one element; implicit_assembly_kernel below runs it in
 // one thread per element (launched from implicit_assembly.cu for the
 // small-strain twins of c8_hill.cuh and the finite-deformation twins of
-// c8_hyper.cuh).
+// c8_hyper.cuh and c8_hypo.cuh).
 //
 // The arithmetic follows calibr8_tpu's fused Pallas kernel in its
 // implicit mode (fem/pallas_assembly.py:242-482) and its local Newton
@@ -28,6 +28,16 @@
 // The Newton carries the nxi tangents only (Dual<T, NXI>); the nxi + d*d
 // tangents are carried once, at the converged xi.
 //
+// The precompute hook (calibr8_tpu's precompute / residual_aux,
+// models/batched.py:594-603): a model with PRECOMPUTE = true (the hypo
+// family of c8_hypo.cuh) splits its residual into Pre<S>, the part that
+// does not depend on xi, formed by precompute(gu, gup, par, pre), and
+// residual_pre(xi, xip, pre, par, abs_tol, C).  The local Newton forms
+// Pre<T> once, before its loop, and its residuals read it as constants;
+// the condensation forms Pre<Dual<T, NXI + D*D>> from the seeded grad_u,
+// so that dC/dgu carries it.  Models without the hook give residual(xi,
+// xip, gu, gup, par, abs_tol, C), which both passes call as before.
+//
 // Rows: mixed u/p with GLS stabilization and the analytic pressure
 // columns (pallas_assembly.py:423-476), or, for displacement-only specs,
 // the momentum rows times the thickness (pallas_assembly.py:299-314,
@@ -42,9 +52,26 @@
 // element's number of Newton updates.
 #pragma once
 
-#include "c8_hyper.cuh"
+#include "c8_hypo.cuh"
 
 namespace c8 {
+
+// whether model M has the precompute hook (M::PRECOMPUTE), and its Pre<S>
+template <typename M, typename = void>
+struct has_precompute : std::false_type {};
+template <typename M>
+struct has_precompute<M, std::void_t<decltype(M::PRECOMPUTE)>>
+    : std::integral_constant<bool, M::PRECOMPUTE> {};
+
+struct NoPre {};
+template <typename M, typename S, bool = has_precompute<M>::value>
+struct pre_of {
+  typedef NoPre type;
+};
+template <typename M, typename S>
+struct pre_of<M, S, true> {
+  typedef typename M::template Pre<S> type;
+};
 
 // Gauss-Jordan without pivoting on [A | B] (N rows, N + M columns), in
 // place; the solution is left in columns N .. N + M - 1.  Columns at or
@@ -66,15 +93,6 @@ C8_HD void gauss_solve(T Ab[N][N + M]) {
   }
 }
 
-template <typename T>
-C8_HD bool finite(T x) {
-#ifdef __CUDA_ARCH__
-  return isfinite(x);
-#else
-  return std::isfinite(x);
-#endif
-}
-
 template <typename T, template <typename> class Model>
 C8_HD void implicit_element(
     int e, int E, const T* __restrict__ x, const T* __restrict__ x_prev,
@@ -87,7 +105,7 @@ C8_HD void implicit_element(
     int* __restrict__ path_out, int* __restrict__ fail_out, int* __restrict__ iters_out) {
   typedef Model<T> M;
   constexpr int D = M::D, NPE = D + 1, NG = D * D, NXI = M::NXI, NPAR = M::NPAR;
-  constexpr bool MIXED = M::MIXED, FINITE = M::FINITE;
+  constexpr bool MIXED = M::MIXED, FINITE = M::FINITE, PRE = has_precompute<M>::value;
   constexpr int NDPN = MIXED ? D + 1 : D, NDE = NPE * NDPN, NV = NXI + NG;
   constexpr int NEWTON_ITERS = M::NEWTON_ITERS;
 
@@ -140,6 +158,8 @@ C8_HD void implicit_element(
   for (int i = 0; i < D; ++i)
 #pragma unroll
     for (int j = 0; j < D; ++j) gux[i][j] = SX(gu[i][j]);
+  typename pre_of<M, T>::type pre_n;
+  if constexpr (PRE) M::precompute(gu, gup, par, pre_n);
   int it = 0;
   for (; it < NEWTON_ITERS; ++it) {
     SX xs[NXI], C[NXI];
@@ -148,7 +168,8 @@ C8_HD void implicit_element(
       xs[k] = SX(xi[k]);
       xs[k].d[k] = T(1);
     }
-    M::residual(xs, xip, gux, gup, par, abs_tol, C);
+    if constexpr (PRE) M::residual_pre(xs, xip, pre_n, par, abs_tol, C);
+    else M::residual(xs, xip, gux, gup, par, abs_tol, C);
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;
@@ -188,7 +209,14 @@ C8_HD void implicit_element(
   int path;
   {
     SV C[NXI];
-    path = M::residual(xv, xip, gv, gup, par, abs_tol, C);  // pathfn at the final xi
+    // pathfn at the final xi
+    if constexpr (PRE) {
+      typename pre_of<M, SV>::type pre_v;
+      M::precompute(gv, gup, par, pre_v);
+      path = M::residual_pre(xv, xip, pre_v, par, abs_tol, C);
+    } else {
+      path = M::residual(xv, xip, gv, gup, par, abs_tol, C);
+    }
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;

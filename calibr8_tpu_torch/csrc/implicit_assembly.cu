@@ -4,15 +4,19 @@
 // Replaces calibr8_tpu's Pallas kernel make_pallas_assemble
 // (fem/pallas_assembly.py:157, pallas_call at :496) in its implicit mode
 // (:363-400, local Newton models/batched.py:561-671) for the small-strain
-// Hill family and the finite-deformation J2 family, with the
-// displacement-only plane-stress rows (:299-314, :402-421).  For the
+// Hill family, the finite-deformation J2 family and the hypo_hill family
+// (batched.py:677-822, 1028-1157, 1290-1393: the polar rotation, and the
+// precompute / residual_aux hoist of the unrotated rate, :594-603), with
+// the displacement-only plane-stress rows (:299-314, :402-421).  For the
 // finite-deformation twins that includes the `finite` branch (:235): the
 // PK1 rows sigma cof(F) and the plane-stress z-stretch pullback
 // (:299-310), the stabilization (tau / det F) cof^T cof grad_p
 // (:309-315), the pressure columns through cof(F) and cof^T cof / det F
 // (:423-451), and the x_prev input (:552-557, 588-589) from which
 // grad_u_prev is formed.  The element code and the kernel are
-// c8_implicit.cuh, the models c8_hill.cuh and c8_hyper.cuh.
+// c8_implicit.cuh, the models c8_hill.cuh, c8_hyper.cuh and c8_hypo.cuh.
+// The library is built without FMA contraction (kernels.EXTRA_FLAGS), so
+// that each operation rounds as the plain version's do.
 //
 // What bounds it on an H100: the stores, as in the analytic kernel.  J_T
 // is nde^2 words per element (16*16*8 = 2 KB for the 3D twins in
@@ -22,7 +26,9 @@
 // Newton iterations with nxi dual tangents and one condensation pass with
 // nxi + 9, is ~10^4 operations per element for small_hill, several times
 // that for hyper_J2 (each residual evaluation pushes the trial state
-// forward through two 3x3 products, a 3x3 inverse, log and exp).  The
+// forward through two 3x3 products, a 3x3 inverse, log and exp) and for
+// hypo_hill (whose condensation carries 16 tangents through three polar
+// factors of 6 iterations each).  The
 // design writes every output once, in the trailing layout (a warp's
 // stores of one J entry are consecutive), and reads the dofs straight from
 // the flat x through edofs_T.  One thread per element keeps the element's
@@ -40,8 +46,10 @@
 // small_hill (3D, mixed), 1 small_hill_plane_strain (2D, mixed), 2
 // small_hill_plane_stress (2D, displacement only), 3 hyper_J2 (3D,
 // mixed), 4 hyper_J2_plane_strain (2D, mixed), 5 hyper_J2_plane_stress
-// (2D, displacement only); x_prev, the previous step's solution
-// (n_dofs,), is read by models 3-5 only; fail_tol = max(10 abs_tol,
+// (2D, displacement only), 6 hypo_hill (3D, mixed), 7
+// hypo_hill_plane_strain (2D, mixed), 8 hypo_hill_plane_stress (2D,
+// displacement only); x_prev, the previous step's solution (n_dofs,), is
+// read by models 3-8 only; fail_tol = max(10 abs_tol,
 // 1e-30); iters may be null.  Returns the cudaError_t of the launch (0 on
 // success).
 extern "C" int c8_implicit_assembly(int device, int dtype, int model, int E, const void* x,
@@ -53,7 +61,8 @@ extern "C" int c8_implicit_assembly(int device, int dtype, int model, int E, con
                                     void* J_T, void* xi_T, void* path, void* fail, void* iters,
                                     void* stream) {
   return c8::implicit_entry<c8::SmallHill, c8::SmallHillPlaneStrain, c8::SmallHillPlaneStress,
-                            c8::HyperJ2, c8::HyperJ2PlaneStrain, c8::HyperJ2PlaneStress>(
+                            c8::HyperJ2, c8::HyperJ2PlaneStrain, c8::HyperJ2PlaneStress,
+                            c8::HypoHill, c8::HypoHillPlaneStrain, c8::HypoHillPlaneStress>(
       device, dtype, model, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params, es_ids, quad,
       npts, stab_half, thick, abs_tol, fail_tol, R_T, J_T, xi_T, path, fail, iters, stream);
 }

@@ -13,8 +13,8 @@ twin decides the mode:
                                  ARE the condensed Jacobian
                                  (pallas_assembly.py:343-362); kernel
                                  csrc/fused_assembly.cu
-  implicit (the Hill and          a local Newton per element, then the
-  hyper_J2 families)             tangents of H(v) = [C; S_rows] over the
+  implicit (the Hill, hyper_J2    a local Newton per element, then the
+  and hypo_hill families)        tangents of H(v) = [C; S_rows] over the
                                  nxi + d*d seeds of v = [xi; grad_u] and
                                  dxi/dgu = -(dC/dxi)^-1 dC/dgu
                                  (pallas_assembly.py:363-400); kernel

@@ -9,8 +9,8 @@ carries only what the rest of the system needs to know about it: its
 parameter order, the size and initial value of its local state, and its
 local-solve tolerance.
 
-Models outside the port so far (the hypo, hosford and barlat families,
-the NN hybrid, isotropic_elastic) raise NotImplementedError.
+Models outside the port so far (the hosford and barlat families, the NN
+hybrid, isotropic_elastic) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -130,18 +130,56 @@ class HyperJ2PlaneStress(Elastic):
         return np.array([0.0, 0.0, 0.0, 1.0, 1.0, 0.0])
 
 
+class HypoHill(_SmallStrainPlastic):
+    """Hypoelastic update of the unrotated Cauchy stress TC under the
+    unrotated rate d = R^T sym((F - F_prev) F^-1) R, R the polar factor of
+    F, with Hill yield and Voce hardening (reference: hypo_hill.cpp).
+    xi = [TC voigt (6), alpha], zero at the start."""
+
+    name = "hypo_hill"
+    param_names = SmallHill.param_names
+
+    def __init__(self, dim: int):
+        if dim != 3:
+            raise ValueError("hypo_hill is a 3D model; use the plane variants in 2D")
+        super().__init__(dim)
+
+
+class HypoHillPlaneStrain(_SmallStrainPlastic):
+    """2D mixed plane strain (hypo_hill_plane_strain.cpp): the in-plane
+    rotation, TC_zz as local state.  xi = [TC voigt (3), alpha, TC_zz]."""
+
+    name = "hypo_hill_plane_strain"
+    param_names = SmallHillPlaneStrain.param_names
+
+    def nxi(self) -> int:
+        return 5
+
+
+class HypoHillPlaneStress(HypoHillPlaneStrain):
+    """2D plane stress (hypo_hill_plane_stress.cpp), displacement only under
+    'mechanics_plane_stress': a material rotation Q = [[Q00, Q01], [Q10,
+    Q11]] in the rate and the stress, the out-of-plane stretch lambda_z as
+    local state.  xi = [TC voigt (3), alpha, lambda_z], lambda_z = 1 at the
+    start."""
+
+    name = "hypo_hill_plane_stress"
+    param_names = SmallHillPlaneStrain.param_names + ("Q00", "Q01", "Q10", "Q11")
+
+    def init_xi(self) -> np.ndarray:
+        return np.array([0.0, 0.0, 0.0, 0.0, 1.0])
+
+
 _REGISTRY = {
     cls.name: cls
     for cls in (Elastic, SmallJ2, SmallHill, SmallHillPlaneStrain, SmallHillPlaneStress,
-                HyperJ2, HyperJ2PlaneStrain, HyperJ2PlaneStress)
+                HyperJ2, HyperJ2PlaneStrain, HyperJ2PlaneStress, HypoHill, HypoHillPlaneStrain,
+                HypoHillPlaneStress)
 }
 
 # the models the port has not got yet, and the fused-assembly twin each
 # one needs (calibr8_tpu models/batched.py)
 _QUEUED = {
-    "hypo_hill": "the implicit twin with the polar rotation",
-    "hypo_hill_plane_strain": "the implicit twin with the polar rotation",
-    "hypo_hill_plane_stress": "the implicit twin with the polar rotation",
     "small_hosford": "the implicit twin with the eigensolver and the frozen path",
     "hypo_hosford": "the implicit twin with the eigensolver and the polar rotation",
     "hypo_barlat": "the implicit twin with the Barlat eigensolver",

@@ -5,20 +5,21 @@ there): every array is (..., E) with the element axis last, small tensor
 algebra is written out over the leading axes.  They form the body of the
 fused assembly's plain version (fem/fused_assembly.py), and the CUDA
 kernels' model bodies (csrc/c8_element.cuh for the analytic twins,
-csrc/c8_hill.cuh for the implicit ones) follow them line by line, so
-the two agree to rounding.
+csrc/c8_hill.cuh, c8_hyper.cuh and c8_hypo.cuh for the implicit ones)
+follow them line by line, so the two agree to rounding.
 
 Analytic twins (elastic, small_J2) solve the local state in closed form;
 implicit twins (the small-strain Hill family, the finite-deformation
-hyper_J2 family) run implicit_newton, and the assembly condenses dxi/dgu
-through their residual.  Every twin has the local residual C with the
+hyper_J2 and hypo_hill families) run implicit_newton, and the assembly
+condenses dxi/dgu through their residual.  Every twin has the local residual C with the
 branch forced to a given path, which the adjoint blocks
 (fem/adjoint_blocks.py) differentiate.  Each twin takes grad_u (d, d, E)
 and, in its local-state methods (first_guess, pathfn, local_solve,
 residual), grad_u_prev, the two fields of calibr8_tpu's Kinematics.
 Only the twins with finite_deformation read grad_u_prev (the relative
-deformation gradient F F_prev^-1 of the trial state); for the others it
-may be None.  The stress measures read grad_u alone.  Tangent
+deformation gradient F F_prev^-1 of the hyper twins' trial state, the
+hypo twins' rate (F - F_prev) F^-1); for the others it may be None.  The
+stress measures read grad_u alone.  Tangent
 rules follow JAX's, which the plain version reproduces under
 torch.func.jvp: torch.where takes the tangent of the selected branch,
 torch.maximum splits the tangent evenly at a tie, t_norm adds 1e-30
@@ -703,13 +704,236 @@ class BatchedHyperJ2PlaneStress(_HyperJ22D):
         return t_add_diag((self._mu(parT) / J) * zeta, 0.5 * self._kappa(parT) * (J - 1.0 / J))
 
 
+def t_polar(F, iters: int = 6):
+    """The rotation R of F = R U by Higham's scaled Newton iteration,
+    R <- (s R + R^-T / s) / 2 with s = |det R|^(-1/d) (calibr8_tpu
+    models/batched.py:677-693): 6 iterations, the scale written exp(-log(|det
+    R| + 1e-300) / d) (0 in float32, as there) and set to 1 where it is not
+    finite.  R^-T = cof(R) / det(R)."""
+    d = F.shape[0]
+    R = F
+    for _ in range(iters):
+        det = t_det(R)
+        s = torch.exp(-torch.log(torch.abs(det) + 1e-300) / d)
+        s = torch.where(torch.isfinite(s), s, torch.ones_like(s))
+        R = 0.5 * (s * R + (t_cof(R) / det) / s)
+    return R
+
+
+def t_unrotated_rate(gu, gu_prev):
+    """(d, R): d = R^T sym((F - F_prev) F^-1) R, R = t_polar(F)
+    (hypo_kinematics.hpp:10-17; calibr8_tpu models/batched.py:696-704)."""
+    F = t_F(gu)
+    L = t_mm(F - t_F(gu_prev), t_inv(F))
+    R = t_polar(F)
+    return t_mm(t_mm(t_transpose(R), t_sym(L)), R), R
+
+
+class _HypoTwin(_ImplicitTwin):
+    """Shared pieces of the hypo_hill family (calibr8_tpu models/batched.py:
+    707-822, 1038-1157, 1290-1393): the unrotated Cauchy stress TC is
+    updated by the unrotated rate d (t_unrotated_rate), which reads
+    grad_u_prev and does not depend on xi.  So the twin splits its residual
+    in two: precompute (d) and residual_aux (C given d); implicit_newton
+    forms d once per call, and residual (the condensation's and the
+    adjoint's C) forms it from its arguments.  The stress is rotated back
+    by the polar factor of the current F, so it depends on grad_u through
+    R.  Hill yield with Voce hardening; branches blend as w a + (1 - w) b."""
+
+    finite_deformation = True
+    newton_iters = 20
+
+    def _lam(self, parT):
+        Em, nu = parT[0], parT[1]
+        return Em * nu / ((1.0 + nu) * (1.0 - 2.0 * nu))
+
+    def _rate(self, gu, gu_prev):
+        if gu_prev is None:
+            raise ValueError(f"{self.name!r} reads grad_u_prev: pass the previous step's state")
+        d, _ = t_unrotated_rate(gu, gu_prev)
+        return d
+
+    def precompute(self, gu, parT, gu_prev=None):
+        return self._rate(gu, gu_prev)
+
+    def residual(self, xiT, xipT, gu, parT, path, gu_prev=None):
+        return self.residual_aux(xiT, xipT, self.precompute(gu, parT, gu_prev), parT, path)
+
+    def pathfn(self, xiT, xipT, gu, parT, gu_prev=None):
+        f, _ = self._f_and_n(xiT, parT)
+        return (f >= -self.abs_tol).to(torch.int32)
+
+    def _rotated(self, xiT, gu):
+        """R TC R^T, R the polar factor of F."""
+        R = t_polar(t_F(gu))
+        return t_mm(t_mm(R, t_voigt_to_sym(xiT[: self.nc], self.dim)), t_transpose(R))
+
+    def hydro_cauchy(self, xiT, gu, parT):
+        return self._hydro(self._rotated(xiT, gu), xiT)
+
+    def cauchy(self, xiT, gu, parT, pT):
+        RC = self._rotated(xiT, gu)
+        return t_sub_diag(RC, self._hydro(RC, xiT) + pT)
+
+
+class BatchedHypoHill(_HypoTwin):
+    """Twin of HypoHill (3D, mixed u/p), residual scaled by 1/mu
+    (hypo_hill.cpp:266-268): xi (7, E) = [TC voigt (6), alpha]; params
+    (11, E) = [E, nu, Y, R00, R11, R22, R01, R02, R12, S, D]."""
+
+    name = "hypo_hill"
+
+    def _voce(self, alpha, parT):
+        Y, S, D = parT[2], parT[9], parT[10]
+        return Y + S * (1.0 - torch.exp(-D * alpha))
+
+    def _elastic_update(self, TC_old, d, parT):
+        return t_add_diag(TC_old + 2.0 * self._mu(parT) * d, self._lam(parT) * t_trace(d))
+
+    def first_guess(self, xipT, gu, parT, gu_prev=None):
+        TC = self._elastic_update(t_voigt_to_sym(xipT[:6], 3), self._rate(gu, gu_prev), parT)
+        return torch.cat([t_sym_to_voigt(TC, 3), xipT[6][None]])
+
+    def _f_and_n(self, xiT, parT):
+        TC = t_voigt_to_sym(xiT[:6], 3)
+        hp = t_hill_params(parT, 3)
+        hval = t_hill_value(TC, hp)
+        f = (hval - self._voce(xiT[6], parT)) / self._mu(parT)
+        return f, t_hill_normal(TC, hp, hval)
+
+    def residual_aux(self, xiT, xipT, d, parT, path):
+        mu = self._mu(parT)
+        TC = t_voigt_to_sym(xiT[:6], 3)
+        alpha, alpha_old = xiT[6], xipT[6]
+        R_TC = (TC - self._elastic_update(t_voigt_to_sym(xipT[:6], 3), d, parT)) / mu
+        f, n = self._f_and_n(xiT, parT)
+        w = (path == 1).to(xiT.dtype)
+        R_out = R_TC + (w * 2.0 * (alpha - alpha_old)) * n
+        R_a = w * f + (1.0 - w) * (alpha - alpha_old)
+        return torch.cat([t_sym_to_voigt(R_out, 3), R_a[None]])
+
+    def _hydro(self, RC, xiT):
+        return t_trace(RC) / 3.0
+
+
+class BatchedHypoHillPlaneStrain(_HypoTwin):
+    """Twin of HypoHillPlaneStrain (2D, mixed u/p): the in-plane rotation,
+    TC_zz as local state.  xi (5, E) = [TC voigt (3), alpha, TC_zz]; params
+    (9, E) = [E, nu, Y, S, D, R00, R11, R22, R01]."""
+
+    name = "hypo_hill_plane_strain"
+
+    def _voce(self, alpha, parT):
+        Y, S, D = parT[2], parT[3], parT[4]
+        return Y + S * (1.0 - torch.exp(-D * alpha))
+
+    def first_guess(self, xipT, gu, parT, gu_prev=None):
+        lam, mu = self._lam(parT), self._mu(parT)
+        d = self.precompute(gu, parT, gu_prev)
+        TC = t_add_diag(t_voigt_to_sym(xipT[:3], 2) + 2.0 * mu * d, lam * t_trace(d))
+        TC_zz = xipT[4] + lam * t_trace(d)
+        return torch.cat([t_sym_to_voigt(TC, 2), xipT[3][None], TC_zz[None]])
+
+    def _zz(self, xiT):
+        """The out-of-plane component of Hill's argument."""
+        return xiT[4]
+
+    def _f_and_n(self, xiT, parT):
+        TC3 = t_embed3(t_voigt_to_sym(xiT[:3], 2), self._zz(xiT))
+        hp = t_hill_params_2d(parT, 5)
+        hval = t_hill_value(TC3, hp)
+        f = (hval - self._voce(xiT[3], parT)) / self._mu(parT)
+        return f, t_in_plane(t_hill_normal(TC3, hp, hval))
+
+    def residual_aux(self, xiT, xipT, d, parT, path):
+        lam, mu = self._lam(parT), self._mu(parT)
+        TC = t_voigt_to_sym(xiT[:3], 2)
+        alpha, alpha_old = xiT[3], xipT[3]
+        R_TC = t_sub_diag(TC - t_voigt_to_sym(xipT[:3], 2) - 2.0 * mu * d, lam * t_trace(d))
+        R_zz = xiT[4] - xipT[4] - lam * t_trace(d)
+        f, n2 = self._f_and_n(xiT, parT)
+        dp2 = (alpha - alpha_old) * n2
+        w = (path == 1).to(xiT.dtype)
+        R_out = R_TC + (w * 2.0 * mu) * dp2
+        R_zz_out = R_zz + w * 2.0 * mu * -t_trace(dp2)
+        R_a = w * f + (1.0 - w) * (alpha - alpha_old)
+        return torch.cat([t_sym_to_voigt(R_out, 2), R_a[None], R_zz_out[None]])
+
+    def _hydro(self, RC, xiT):
+        return (t_trace(RC) + xiT[4]) / 3.0
+
+
+class BatchedHypoHillPlaneStress(BatchedHypoHillPlaneStrain):
+    """Twin of HypoHillPlaneStress (2D, displacement only, under
+    'mechanics_plane_stress'): a material rotation Q in the rate (Q^T d Q)
+    and the stress (R Q TC Q^T R^T), lambda_z = lambda_z_old / (1 - (d_zz +
+    corr)).  xi (5, E) = [TC voigt (3), alpha, lambda_z]; params (13, E) =
+    [E, nu, Y, S, D, R00, R11, R22, R01, Q00, Q01, Q10, Q11]."""
+
+    name = "hypo_hill_plane_stress"
+    plane_stress = True
+    z_stretch_idx = 4
+
+    def _Q(self, parT):
+        return torch.stack([torch.stack([parT[9], parT[10]]), torch.stack([parT[11], parT[12]])])
+
+    def precompute(self, gu, parT, gu_prev=None):
+        Q = self._Q(parT)
+        return t_mm(t_mm(t_transpose(Q), self._rate(gu, gu_prev)), Q)
+
+    def first_guess(self, xipT, gu, parT, gu_prev=None):
+        lam, mu = self._lam(parT), self._mu(parT)
+        d = self.precompute(gu, parT, gu_prev)
+        d_zz = -lam * t_trace(d) / (lam + 2.0 * mu)
+        TC = t_add_diag(t_voigt_to_sym(xipT[:3], 2) + 2.0 * mu * d, lam * (t_trace(d) + d_zz))
+        lam_z = xipT[4] / (1.0 - d_zz)
+        return torch.cat([t_sym_to_voigt(TC, 2), xipT[3][None], lam_z[None]])
+
+    def _zz(self, xiT):
+        return None
+
+    def residual_aux(self, xiT, xipT, d, parT, path):
+        lam, mu = self._lam(parT), self._mu(parT)
+        TC = t_voigt_to_sym(xiT[:3], 2)
+        alpha, alpha_old = xiT[3], xipT[3]
+        lam_z, lam_z_old = xiT[4], xipT[4]
+        d_zz = -lam * t_trace(d) / (lam + 2.0 * mu)
+        R_TC = t_sub_diag(TC - t_voigt_to_sym(xipT[:3], 2) - 2.0 * mu * d,
+                          lam * (t_trace(d) + d_zz))
+        f, n2 = self._f_and_n(xiT, parT)
+        dp2 = (alpha - alpha_old) * n2
+        corr = 2.0 * mu * -t_trace(dp2) / (2.0 * mu + lam)
+        w = (path == 1).to(xiT.dtype)
+        # plastic in-plane rows: + 2 mu dp2 - lam corr on the diagonal, all
+        # over mu (hypo_hill_plane_stress.cpp:325)
+        R_p = t_sub_diag(R_TC + 2.0 * mu * dp2, lam * corr) / mu
+        R_TC_out = w * R_p + (1.0 - w) * R_TC
+        R_lam = (w * (lam_z - lam_z_old / (1.0 - (d_zz + corr)))
+                 + (1.0 - w) * (lam_z - lam_z_old / (1.0 - d_zz)))
+        R_a = w * f + (1.0 - w) * (alpha - alpha_old)
+        return torch.cat([t_sym_to_voigt(R_TC_out, 2), R_a[None], R_lam[None]])
+
+    def cauchy(self, xiT, gu, parT, pT=None):
+        """The full in-plane Cauchy stress R Q TC Q^T R^T."""
+        RQ = t_mm(t_polar(t_F(gu)), self._Q(parT))
+        return t_mm(t_mm(RQ, t_voigt_to_sym(xiT[:3], 2)), t_transpose(RQ))
+
+    def hydro_cauchy(self, xiT, gu, parT):
+        return t_trace(self.cauchy(xiT, gu, parT)) / 3.0
+
+    def pressure_scale_factor(self, parT):
+        return torch.zeros_like(parT[0])
+
+
 def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
     """The fixed-iteration local Newton of the implicit twins, per lane
-    (calibr8_tpu models/batched.py:561-671, without its precompute,
-    frozen-path and line-search options, which these twins do not use).
-    It starts from the twin's first_guess (xi_prev, or the hyper twins'
-    elastic trial state, batched.py:582).  Each iteration takes the
-    branch from the current xi, marks a lane
+    (calibr8_tpu models/batched.py:561-671, without its frozen-path and
+    line-search options, which these twins do not use).  It starts from
+    the twin's first_guess (xi_prev, or the finite-deformation twins'
+    elastic trial state, batched.py:582).  A twin with `precompute` (the
+    hypo family) has its xi-independent kinematics formed once per call
+    and its residual read through residual_aux (batched.py:594-603).  Each
+    iteration takes the branch from the current xi, marks a lane
     done once ||C|| < abs_tol (before its update), and adds the step
     times (1 - done) * all(isfinite(dxi)); the loop ends after
     newton_iters iterations or when every lane is done.  Returns (xiT,
@@ -720,13 +944,22 @@ def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
     nxi = bm.nxi
     xi = bm.first_guess(xipT, gu, parT, gu_prev)
     dtype, E = xi.dtype, xi.shape[-1]
+    if hasattr(bm, "precompute"):
+        aux = bm.precompute(gu, parT, gu_prev)
+
+        def resid(z, path):
+            return bm.residual_aux(z, xipT, aux, parT, path)
+    else:
+        def resid(z, path):
+            return bm.residual(z, xipT, gu, parT, path, gu_prev)
+
     done = torch.zeros(E, dtype=torch.int32, device=xi.device)
     count = torch.zeros_like(done)
     for _ in range(bm.newton_iters):
         if bool(done.min() >= 1):
             break
         path = bm.pathfn(xi, xipT, gu, parT, gu_prev)
-        R, cols = jvp_columns(lambda z: bm.residual(z, xipT, gu, parT, path, gu_prev), xi)
+        R, cols = jvp_columns(lambda z: resid(z, path), xi)
         rnorm = torch.sqrt(usum(R * R, 0))
         done = torch.maximum(done, (rnorm < bm.abs_tol).to(torch.int32))
         count += 1 - done
@@ -739,7 +972,7 @@ def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
         gate = (1 - done).to(dtype) * ok
         xi = xi + gate * dxi
     path = bm.pathfn(xi, xipT, gu, parT, gu_prev)
-    Rf = bm.residual(xi, xipT, gu, parT, path, gu_prev)
+    Rf = resid(xi, path)
     rnorm = torch.sqrt(usum(Rf * Rf, 0))
     failed = (rnorm >= max(bm.abs_tol * 10.0, 1e-30)).to(torch.int32)
     if iters is not None:
@@ -766,6 +999,9 @@ BATCHED_MODELS = {
     "hyper_J2": BatchedHyperJ2,
     "hyper_J2_plane_strain": BatchedHyperJ2PlaneStrain,
     "hyper_J2_plane_stress": BatchedHyperJ2PlaneStress,
+    "hypo_hill": BatchedHypoHill,
+    "hypo_hill_plane_strain": BatchedHypoHillPlaneStrain,
+    "hypo_hill_plane_stress": BatchedHypoHillPlaneStress,
 }
 
 # the CUDA kernels' model index (csrc/fused_assembly.cu c8_fused_assembly
@@ -775,6 +1011,7 @@ KERNEL_MODEL_ID = {
     "elastic": 0, "small_J2": 1,
     "small_hill": 0, "small_hill_plane_strain": 1, "small_hill_plane_stress": 2,
     "hyper_J2": 3, "hyper_J2_plane_strain": 4, "hyper_J2_plane_stress": 5,
+    "hypo_hill": 6, "hypo_hill_plane_strain": 7, "hypo_hill_plane_stress": 8,
 }
 
 

@@ -3,9 +3,9 @@
 full-width decks: the values chip_smoke.py holds the port to.
 
     JAX_PLATFORMS=cpu python3 chip_reference.py [plane_stress] [hill] [hyper_plane_stress]
-    JAX_PLATFORMS=cpu python3 chip_reference.py adjoint DIR [bench] [hill] [hyper]
-    python3 chip_reference.py sweep DIR [bench] [hill] [hyper]
-    JAX_PLATFORMS=cpu python3 chip_reference.py mg DIR [cube] [cube_step] [notch] [adjoint]
+    JAX_PLATFORMS=cpu python3 chip_reference.py adjoint DIR [bench] [hill] [hyper] [hypo]
+    python3 chip_reference.py sweep DIR [bench] [hill] [hyper] [hypo]
+    JAX_PLATFORMS=cpu python3 chip_reference.py mg DIR [cube] [cube_step] [notch] [adjoint] [hypo_notch]
 
 The first form runs each named deck (all by default) through
 calibr8_tpu's Problem(...).solve_primal() and prints one JSON line per
@@ -13,8 +13,8 @@ deck with J, the per-step contributions and the wall time.
 
 The second runs calibr8_tpu's AdjointObjective.gradient (the CLI's
 `pdeco` objective: default LinearCfg, tightened by Adjoint) on each named
-full-width adjoint deck of chip_smoke.py (chip_smoke.adjoint_deck, both by
-default) at the deck's own parameters, and prints one JSON line per deck
+full-width adjoint deck of chip_smoke.py (chip_smoke.adjoint_deck; bench,
+hill and hyper by default) at the deck's own parameters, and prints one JSON line per deck
 with the canonical gradient, J, the adjoint's relative residual per step
 and the wall times.  A relative residual above calibr8_tpu's
 AdjointSolveError bound is recorded in the line (`solve_error`) instead
@@ -29,8 +29,9 @@ the card and no JAX.
 
 The fourth runs calibr8_tpu's geometric-multigrid decks of chip_smoke.py
 (mg_cube_deck with `preconditioner reuse` none and step, mg_notch_deck,
-and dJ/dp of adjoint_deck("mg") with Adjoint(mg_factory=...)), all by
-default, and prints one JSON line per deck (also written to
+and dJ/dp of adjoint_deck("mg") with Adjoint(mg_factory=...); the first
+four by default; `hypo_notch` is hypo_mg_notch_deck), and prints one
+JSON line per deck (also written to
 DIR/mg_ref_<name>.json) with J or the gradient, the Newton iterations of
 each load step, the Krylov iterations and relative residual of every
 linear solve (transposed ones for the adjoint) and the wall times.  It
@@ -95,7 +96,8 @@ def adjoint_references(names, chip_smoke, out_dir) -> None:
     from calibr8_tpu.solve.linear import LinearCfg
 
     for name in names:
-        const = {"bench": "G_REF_N32", "hill": "G_REF_HILL_N32", "hyper": "G_REF_HYPER"}[name]
+        const = {"bench": "G_REF_N32", "hill": "G_REF_HILL_N32", "hyper": "G_REF_HYPER",
+                 "hypo": "G_REF_HYPO"}[name]
         t0 = time.perf_counter()
         spec = load_deck(chip_smoke.adjoint_deck(name))
         prob = Problem(spec)
@@ -226,7 +228,8 @@ def mg_references(names, chip_smoke, out_dir) -> None:
         else:
             deck = {"cube": lambda: chip_smoke.mg_cube_deck("none"),
                     "cube_step": lambda: chip_smoke.mg_cube_deck("step"),
-                    "notch": chip_smoke.mg_notch_deck}[name]()
+                    "notch": chip_smoke.mg_notch_deck,
+                    "hypo_notch": chip_smoke.hypo_mg_notch_deck}[name]()
             prob = Problem(load_deck(copy.deepcopy(deck)))
             steps = []
             solve_at_step = prob.step_solver.solve_at_step

@@ -243,3 +243,87 @@ def test_hyper_wrappers_run_plain_version_on_cpu():
     assert 1 <= int(iters.min()) and int(iters.max()) <= bm.newton_iters
     with pytest.raises(ValueError, match="grad_u_prev"):
         fused_assembly(d, bm, x, xi_prev, tp.params0)
+
+
+HYPO = {
+    # name: (dim, param_names, initial xi)
+    "hypo_hill": (3, ("E", "nu", "Y", "R00", "R11", "R22", "R01", "R02", "R12", "S", "D"), [0.0] * 7),
+    "hypo_hill_plane_strain": (2, ("E", "nu", "Y", "S", "D", "R00", "R11", "R22", "R01"),
+                               [0.0] * 5),
+    "hypo_hill_plane_stress": (2, ("E", "nu", "Y", "S", "D", "R00", "R11", "R22", "R01", "Q00", "Q01",
+                                   "Q10", "Q11"), [0.0, 0.0, 0.0, 0.0, 1.0]),
+}
+
+
+class _NoHoist:
+    """A twin seen without its precompute hook."""
+
+    def __init__(self, bm):
+        self._bm = bm
+
+    def __getattr__(self, k):
+        if k == "precompute":
+            raise AttributeError(k)
+        return getattr(self._bm, k)
+
+
+def test_hypo_registry_first_guess_and_hoist():
+    """The three hypo models as calibr8_tpu registers them (models/hypo.py),
+    their kernel ids, the first guess of their local Newton (xi_prev when
+    F = F_prev: no rate), and implicit_newton with the rate hoisted out of
+    the loop (precompute / residual_aux) against the same Newton that
+    forms it in every residual: the same xi, path, failures and
+    iteration counts, in a state where some elements yield."""
+    from calibr8_tpu_torch.models import create_local_model
+    from calibr8_tpu_torch.models.batched import KERNEL_MODEL_ID, get_batched_model
+
+    E = 64
+    rng = np.random.default_rng(5)
+    for name, (dim, names, init) in HYPO.items():
+        m = create_local_model(name, dim)
+        assert m.param_names == names and m.nxi() == len(init)
+        np.testing.assert_array_equal(m.init_xi(), init)
+        m.abs_tol = 1e-12
+        bm = get_batched_model(m)
+        assert bm.finite_deformation and not bm.analytic_solve and bm.newton_iters == 20
+        assert KERNEL_MODEL_ID[name] == 6 + list(HYPO).index(name)
+        mats = {"E": 1000.0, "nu": 0.25, "Y": 10.0, "S": 5.0, "D": 2.0, "R00": 1.0, "R11": 1.1,
+                "R22": 0.95, "R01": 1.05, "R02": 1.0, "R12": 1.0, "Q00": 0.8, "Q01": -0.6,
+                "Q10": 0.6, "Q11": 0.8}
+        parT = torch.tensor([mats[k] for k in names], dtype=torch.float64)[:, None].repeat(1, E)
+        xipT = torch.tensor(init, dtype=torch.float64)[:, None] + torch.tensor(
+            1e-4 * rng.standard_normal((len(init), E)))
+        xipT[3 if dim == 2 else 6] = xipT[3 if dim == 2 else 6].abs()
+        gu_prev = torch.tensor(0.01 * rng.standard_normal((dim, dim, E)))
+        np.testing.assert_allclose(bm.first_guess(xipT, gu_prev, parT, gu_prev).numpy(),
+                                   xipT.numpy(), rtol=0, atol=1e-15)
+        # increments from none to ~2%: some elements yield, some do not
+        gu = gu_prev + torch.tensor(0.02 * np.linspace(0.0, 1.0, E) * rng.standard_normal((dim, dim, E)))
+        runs = []
+        for twin in (bm, _NoHoist(bm)):
+            iters = torch.zeros(E, dtype=torch.int32)
+            runs.append(implicit_newton(twin, xipT, gu, parT, gu_prev, iters) + (iters,))
+        (xi, path, failed, iters), (xi2, path2, failed2, iters2) = runs
+        assert 0 < int(path.sum()) < E and int(failed.sum()) == 0
+        for a, b in ((path, path2), (failed, failed2), (iters, iters2)):
+            assert torch.equal(a, b)
+        assert float((xi - xi2).abs().max()) <= 1e-14 * float(xi.abs().max())
+        with pytest.raises(ValueError, match="grad_u_prev"):
+            bm.first_guess(xipT, gu, parT)
+    with pytest.raises(ValueError, match="3D model"):
+        create_local_model("hypo_hill", 2)
+
+
+def test_probe_plain_version_matches_numpy():
+    """Kernel 4's plain version (probe.py) on the CPU: the inverse trig
+    within its limits of numpy, the three loop forms equal to numpy's
+    loop; no launch is counted."""
+    from calibr8_tpu_torch import kernels, probe
+
+    before = dict(kernels.launches)
+    records, outs = probe.run(torch.device("cpu"))
+    assert [r["probe"] for r in records] == ["trig", "trig", "loop"]
+    assert all(r["ok"] for r in records), records
+    assert outs["float32"].dtype == torch.float32 and outs["loop"].shape == (3, 8, 1024)
+    assert kernels.launches == before
+    assert probe.main(["--device", "cpu"]) == 0
