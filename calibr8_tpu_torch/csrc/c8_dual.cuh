@@ -12,9 +12,10 @@
 // Tangent rules follow JAX's, which the reference port was checked
 // against: sqrt' = g * (0.5 / sqrt(x)); exp' = g * exp(x); log' = g / x;
 // pow(x, n)' = g * (n x^(n-1)) for a constant float n; |x|' = g sign(x)
-// (0 at x == 0);
-// (a/b)' = a'/b - a b'/b^2; max0(f) = max(f, 0) and maxc(f, c) give each
-// side half the tangent at a tie.
+// (0 at x == 0); cos' = -g sin(x); sin' = g cos(x); acos' = -g /
+// sqrt(1 - x^2); (a/b)' = a'/b - a b'/b^2; max0(f) = max(f, 0), maxc(f, c),
+// minc(f, c) and c8_clip(f, lo, hi) give each side half the tangent at a
+// tie.
 #pragma once
 
 #include <cmath>
@@ -213,6 +214,62 @@ C8_HD Dual<T, N> c8_abs(const Dual<T, N>& a) {
   return r;
 }
 
+C8_HD float c8_cos(float x) { return cosf(x); }
+C8_HD double c8_cos(double x) { return cos(x); }
+C8_HD float c8_sin(float x) { return sinf(x); }
+C8_HD double c8_sin(double x) { return sin(x); }
+
+// cos' = g * -sin(x); sin' = g * cos(x)
+template <typename T, int N>
+C8_HD Dual<T, N> c8_cos(const Dual<T, N>& a) {
+  Dual<T, N> r;
+  r.v = c8_cos(a.v);
+  const T jac = -c8_sin(a.v);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * jac;
+  return r;
+}
+
+template <typename T, int N>
+C8_HD Dual<T, N> c8_sin(const Dual<T, N>& a) {
+  Dual<T, N> r;
+  r.v = c8_sin(a.v);
+  const T jac = c8_cos(a.v);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * jac;
+  return r;
+}
+
+C8_HD float c8_acos(float x) { return acosf(x); }
+C8_HD double c8_acos(double x) { return acos(x); }
+
+// 1 / sqrt(x): the device's rsqrt, as PyTorch's CUDA rsqrt computes it
+C8_HD float c8_rsqrt(float x) {
+#ifdef __CUDA_ARCH__
+  return rsqrtf(x);
+#else
+  return 1.0f / sqrtf(x);
+#endif
+}
+C8_HD double c8_rsqrt(double x) {
+#ifdef __CUDA_ARCH__
+  return rsqrt(x);
+#else
+  return 1.0 / sqrt(x);
+#endif
+}
+
+// acos' = g * -rsqrt(1 - x^2) (JAX's and PyTorch's rule; -inf at |x| = 1)
+template <typename T, int N>
+C8_HD Dual<T, N> c8_acos(const Dual<T, N>& a) {
+  Dual<T, N> r;
+  r.v = c8_acos(a.v);
+  const T jac = -c8_rsqrt(T(1) - a.v * a.v);
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * jac;
+  return r;
+}
+
 template <typename T>
 C8_HD bool finite(T x) {
 #ifdef __CUDA_ARCH__
@@ -237,6 +294,25 @@ C8_HD Dual<T, N> maxc(const Dual<T, N>& f, T c) {
   }
   return r;
 }
+
+// min(f, c) for a constant c, the mirror of maxc
+template <typename T>
+C8_HD T minc(T f, T c) { return f > c ? c : f; }
+
+template <typename T, int N>
+C8_HD Dual<T, N> minc(const Dual<T, N>& f, T c) {
+  if (f.v > c) return Dual<T, N>(c);
+  Dual<T, N> r = f;
+  if (f.v == c) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) r.d[k] = r.d[k] * T(0.5);
+  }
+  return r;
+}
+
+// jnp.clip(f, lo, hi) = min(max(f, lo), hi): half the tangent at a tie
+template <typename S, typename T>
+C8_HD S c8_clip(const S& f, T lo, T hi) { return minc(maxc(f, lo), hi); }
 
 // max(f, 0) with JAX's tie rule: at f == 0 each side gets half the tangent
 template <typename S>

@@ -14,15 +14,22 @@
 //  - local Newton from the model's first guess (xi_prev, or the elastic
 //    trial state of the finite-deformation twins), at most
 //    M::NEWTON_ITERS iterations: the branch is
-//    taken from the current xi; the lane is done once ||C|| < abs_tol
-//    (then it stops, which gives the same xi as calibr8_tpu's gated
-//    update); the step is dxi = -(dC/dxi)^-1 C, added times
-//    all(isfinite(dxi)); fail where ||C(xi)|| >= fail_tol at the end;
+//    taken from the current xi, or, for a model with FREEZE_PATH (the
+//    eigensolver twins of c8_hosford.cuh), once from the first guess and
+//    kept (batched.py:585-586,603,607,667); the lane is done once ||C|| <
+//    abs_tol (then it stops, which gives the same xi as calibr8_tpu's
+//    gated update); the step is dxi = -(dC/dxi)^-1 C, added times
+//    all(isfinite(dxi)), and for FREEZE_PATH models times the alpha of a
+//    4-halving Armijo line search on 1/2 ||C||^2 (:621-647), whose trial
+//    residuals are evaluated on plain T; fail where ||C(xi)|| >= fail_tol
+//    at the end;
 //  - small solves: Gauss-Jordan without pivoting, multiplying by
 //    1 / A[k][k] (utils/smallsolve.py:64-83);
 //  - condensation: the tangents of H(v) = [C; S_rows] over the
 //    nxi + d*d seeds of v = [xi; grad_u] (Dual<T, NXI + D*D>, the
-//    counterpart of jax.linearize), dxi/dgu = -(dC/dxi)^-1 dC/dgu, and
+//    counterpart of jax.linearize) at the Newton's branch (the frozen one
+//    where FREEZE_PATH; pallas_assembly.py:363-400), which is also the
+//    element's path, dxi/dgu = -(dC/dxi)^-1 dC/dgu, and
 //    the condensed row K_i = dS_i/dgu + sum_k dS_i/dxi_k dxi_k/dgu, the k
 //    terms added in index order (pallas_assembly.py:363-400).
 // The Newton carries the nxi tangents only (Dual<T, NXI>); the nxi + d*d
@@ -73,6 +80,34 @@ struct pre_of<M, S, true> {
   typedef typename M::template Pre<S> type;
 };
 
+// whether model M freezes its branch at the first guess (M::FREEZE_PATH)
+template <typename M, typename = void>
+struct has_freeze_path : std::false_type {};
+template <typename M>
+struct has_freeze_path<M, std::void_t<decltype(M::FREEZE_PATH)>>
+    : std::integral_constant<bool, M::FREEZE_PATH> {};
+
+// C at xi; returns its path.  FREEZE_PATH models take the branch path_in
+// (-1: the one xi selects), the others always the one xi selects.  gu
+// (any scalar) is read by models without the precompute hook, pre by
+// models with it.
+template <typename M, typename T, typename S, typename G, typename P>
+C8_HD int local_residual(const S* xi, const T* xip, const G gu[M::D][M::D],
+                         const T gup[M::D][M::D], const P& pre, const T* par, T abs_tol,
+                         int path_in, S* C) {
+  if constexpr (has_precompute<M>::value) {
+    if constexpr (has_freeze_path<M>::value)
+      return M::residual_pre(xi, xip, pre, par, abs_tol, path_in, C);
+    else
+      return M::residual_pre(xi, xip, pre, par, abs_tol, C);
+  } else {
+    if constexpr (has_freeze_path<M>::value)
+      return M::residual(xi, xip, gu, gup, par, abs_tol, path_in, C);
+    else
+      return M::residual(xi, xip, gu, gup, par, abs_tol, C);
+  }
+}
+
 // Gauss-Jordan without pivoting on [A | B] (N rows, N + M columns), in
 // place; the solution is left in columns N .. N + M - 1.  Columns at or
 // left of the pivot are not updated: they do not enter the solution.
@@ -106,6 +141,7 @@ C8_HD void implicit_element(
   typedef Model<T> M;
   constexpr int D = M::D, NPE = D + 1, NG = D * D, NXI = M::NXI, NPAR = M::NPAR;
   constexpr bool MIXED = M::MIXED, FINITE = M::FINITE, PRE = has_precompute<M>::value;
+  constexpr bool FREEZE = has_freeze_path<M>::value;
   constexpr int NDPN = MIXED ? D + 1 : D, NDE = NPE * NDPN, NV = NXI + NG;
   constexpr int NEWTON_ITERS = M::NEWTON_ITERS;
 
@@ -160,6 +196,12 @@ C8_HD void implicit_element(
     for (int j = 0; j < D; ++j) gux[i][j] = SX(gu[i][j]);
   typename pre_of<M, T>::type pre_n;
   if constexpr (PRE) M::precompute(gu, gup, par, pre_n);
+  // FREEZE_PATH: the branch of the first guess, for every evaluation
+  int path0 = -1;
+  if constexpr (FREEZE) {
+    T C0[NXI];
+    path0 = local_residual<M>(xi, xip, gu, gup, pre_n, par, abs_tol, -1, C0);
+  }
   int it = 0;
   for (; it < NEWTON_ITERS; ++it) {
     SX xs[NXI], C[NXI];
@@ -168,8 +210,7 @@ C8_HD void implicit_element(
       xs[k] = SX(xi[k]);
       xs[k].d[k] = T(1);
     }
-    if constexpr (PRE) M::residual_pre(xs, xip, pre_n, par, abs_tol, C);
-    else M::residual(xs, xip, gux, gup, par, abs_tol, C);
+    local_residual<M>(xs, xip, gux, gup, pre_n, par, abs_tol, path0, C);
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;
@@ -186,8 +227,34 @@ C8_HD void implicit_element(
 #pragma unroll
     for (int k = 0; k < NXI; ++k) ok = ok && finite(Ab[k][NXI]);
     const T gate = ok ? T(1) : T(0);
+    T alpha = T(1);
+    if constexpr (FREEZE) {
+      // the line search on 1/2 ||C||^2, on plain T: four trials at xi +
+      // alpha ok dxi; alpha halves until a trial is accepted and stays
+      // from then on (1/16 if none is)
+      const T rn = c8_sqrt(rn2);
+      const T phi0 = (T(0.5) * rn) * rn;
+      bool accepted = false;
+      for (int ls = 0; ls < 4; ++ls) {
+        T trial[NXI], Ct[NXI];
 #pragma unroll
-    for (int k = 0; k < NXI; ++k) xi[k] = xi[k] + gate * Ab[k][NXI];
+        for (int k = 0; k < NXI; ++k) trial[k] = xi[k] + (alpha * gate) * Ab[k][NXI];
+        local_residual<M>(trial, xip, gu, gup, pre_n, par, abs_tol, path0, Ct);
+        T sq = Ct[0] * Ct[0];
+        bool fin = finite(Ct[0]);
+#pragma unroll
+        for (int k = 1; k < NXI; ++k) {
+          sq = sq + Ct[k] * Ct[k];
+          fin = fin && finite(Ct[k]);
+        }
+        const bool good = T(0.5) * sq <= phi0 * (T(1) - T(2.0 * 1e-4) * alpha) && fin;
+        if (!(good || accepted)) alpha = T(0.5) * alpha;
+        accepted = accepted || good;
+      }
+    }
+    // alpha = 1 without the line search: 1 * dxi is dxi, bit for bit
+#pragma unroll
+    for (int k = 0; k < NXI; ++k) xi[k] = xi[k] + gate * (alpha * Ab[k][NXI]);
   }
 
   // ---- condensation at the converged xi: seeds over v = [xi; gu] ----
@@ -209,14 +276,10 @@ C8_HD void implicit_element(
   int path;
   {
     SV C[NXI];
-    // pathfn at the final xi
-    if constexpr (PRE) {
-      typename pre_of<M, SV>::type pre_v;
-      M::precompute(gv, gup, par, pre_v);
-      path = M::residual_pre(xv, xip, pre_v, par, abs_tol, C);
-    } else {
-      path = M::residual(xv, xip, gv, gup, par, abs_tol, C);
-    }
+    // the branch of the final xi (pathfn), or the frozen one
+    typename pre_of<M, SV>::type pre_v;
+    if constexpr (PRE) M::precompute(gv, gup, par, pre_v);
+    path = local_residual<M>(xv, xip, gv, gup, pre_v, par, abs_tol, path0, C);
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;

@@ -13,12 +13,17 @@ twin decides the mode:
                                  ARE the condensed Jacobian
                                  (pallas_assembly.py:343-362); kernel
                                  csrc/fused_assembly.cu
-  implicit (the Hill, hyper_J2    a local Newton per element, then the
-  and hypo_hill families)        tangents of H(v) = [C; S_rows] over the
-                                 nxi + d*d seeds of v = [xi; grad_u] and
-                                 dxi/dgu = -(dC/dxi)^-1 dC/dgu
-                                 (pallas_assembly.py:363-400); kernel
-                                 csrc/implicit_assembly.cu
+  implicit (the Hill, hyper_J2,   a local Newton per element, then the
+  hypo_hill and eigensolver      tangents of H(v) = [C; S_rows] over the
+  families)                      nxi + d*d seeds of v = [xi; grad_u] and
+                                 dxi/dgu = -(dC/dxi)^-1 dC/dgu at the
+                                 Newton's path (the frozen one for the
+                                 eigensolver twins;
+                                 pallas_assembly.py:363-400); kernel
+                                 csrc/implicit_assembly.cu, or
+                                 csrc/implicit_eig.cu for small_hosford
+                                 and hypo_hosford, implicit_barlat.cu
+                                 for hypo_barlat
 
 The spec decides the rows: mixed u/p with GLS stabilization, whose
 pressure columns are added analytically (pallas_assembly.py:423-476),
@@ -164,9 +169,18 @@ _IMPLICIT_ARGTYPES = (
 )
 
 
+# the eigensolver twins' kernels: libraries of their own (csrc/implicit_eig.cu,
+# csrc/implicit_barlat.cu), each with its launch count; the other implicit
+# twins' is implicit_assembly
+IMPLICIT_LIB = {"small_hosford": ("implicit_eig", "c8_implicit_eig_assembly"),
+                "hypo_hosford": ("implicit_eig", "c8_implicit_eig_assembly"),
+                "hypo_barlat": ("implicit_barlat", "c8_implicit_barlat_assembly")}
+
+
 def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None, x_prev=None):
     """The implicit-mode kernel for an implicit twin on CUDA tensors:
-    (R_T, J_T, xi_T, path, fail), from csrc/implicit_assembly.cu; the
+    (R_T, J_T, xi_T, path, fail), from csrc/implicit_assembly.cu, or, for
+    the eigensolver twins, csrc/implicit_eig.cu and implicit_barlat.cu; the
     finite-deformation twins read x_prev.  With `newton_iters` an
     int32 (E,) CUDA tensor, the kernel also writes each element's local
     Newton iteration count there.  On CPU tensors it runs the plain
@@ -188,7 +202,8 @@ def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None, x
             "newton_iters must be a contiguous (E,) int32 tensor on the Disc's device")
     R_T, J_T, xi_T, path, fail = _outputs(disc, bmodel)
     quad, npts = _quad_array(spec.dim)
-    fn = kernels.function("implicit_assembly", "c8_implicit_assembly", _IMPLICIT_ARGTYPES)
+    lib, symbol = IMPLICIT_LIB.get(bmodel.name, ("implicit_assembly", "c8_implicit_assembly"))
+    fn = kernels.function(lib, symbol, _IMPLICIT_ARGTYPES)
     err = fn(
         x.device.index, kernels.dtype_code(disc.dtype), KERNEL_MODEL_ID[bmodel.name], E,
         x.data_ptr(), (x if x_prev is None else x_prev).data_ptr(), disc.edofs_T.data_ptr(),
@@ -202,8 +217,8 @@ def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None, x
         None if newton_iters is None else newton_iters.data_ptr(),
         kernels.stream_ptr(disc.device),
     )
-    kernels.check("implicit_assembly", err)
-    kernels.launches["implicit_assembly"] += 1
+    kernels.check(lib, err)
+    kernels.launches[lib] += 1
     return R_T, J_T, xi_T, path, fail
 
 

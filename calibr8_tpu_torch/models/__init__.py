@@ -9,8 +9,8 @@ carries only what the rest of the system needs to know about it: its
 parameter order, the size and initial value of its local state, and its
 local-solve tolerance.
 
-Models outside the port so far (the hosford and barlat families, the NN
-hybrid, isotropic_elastic) raise NotImplementedError.
+Models outside the port so far (the NN hybrid, isotropic_elastic) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -170,19 +170,52 @@ class HypoHillPlaneStress(HypoHillPlaneStrain):
         return np.array([0.0, 0.0, 0.0, 0.0, 1.0])
 
 
+class SmallHosford(_SmallStrainPlastic):
+    """3D Hosford yield on the deviatoric stress with combined hardening Y
+    + K alpha + S (1 - exp(-D alpha)), f scaled by 2 mu; the local Newton
+    keeps the branch of its first guess and takes a line search
+    (reference: small_hosford.cpp:160-266).  xi = [pstrain voigt (6),
+    alpha]."""
+
+    name = "small_hosford"
+    param_names = ("E", "nu", "Y", "a", "K", "S", "D")
+
+    def __init__(self, dim: int):
+        if dim != 3:
+            raise ValueError(f"{self.name} is a 3D model")
+        super().__init__(dim)
+
+
+class HypoHosford(SmallHosford):
+    """The hypoelastic update of HypoHill with Hosford yield on TC and
+    hardening Y + S (1 - exp(-D alpha)) (K is not read), the frozen branch
+    and the line search (reference: hypo_hosford.cpp).  xi = [TC voigt
+    (6), alpha]."""
+
+    name = "hypo_hosford"
+
+
+class HypoBarlat(SmallHosford):
+    """The hypoelastic update of HypoHill with Barlat Yld2004-18p yield on
+    TC (the two linear transforms' coefficients sp_* and dp_*), hardening
+    Y + K alpha + S (1 - exp(-D alpha)), the frozen branch and the line
+    search (reference: hypo_barlat.cpp).  xi = [TC voigt (6), alpha]."""
+
+    name = "hypo_barlat"
+    param_names = SmallHosford.param_names + tuple(
+        f"{t}_{c}" for t in ("sp", "dp") for c in ("01", "02", "10", "12", "20", "21", "33", "44", "55"))
+
+
 _REGISTRY = {
     cls.name: cls
     for cls in (Elastic, SmallJ2, SmallHill, SmallHillPlaneStrain, SmallHillPlaneStress,
                 HyperJ2, HyperJ2PlaneStrain, HyperJ2PlaneStress, HypoHill, HypoHillPlaneStrain,
-                HypoHillPlaneStress)
+                HypoHillPlaneStress, SmallHosford, HypoHosford, HypoBarlat)
 }
 
 # the models the port has not got yet, and the fused-assembly twin each
 # one needs (calibr8_tpu models/batched.py)
 _QUEUED = {
-    "small_hosford": "the implicit twin with the eigensolver and the frozen path",
-    "hypo_hosford": "the implicit twin with the eigensolver and the polar rotation",
-    "hypo_barlat": "the implicit twin with the Barlat eigensolver",
     "hybrid_hyper_J2_plane_stress": "the implicit twin with the embedded network",
     "isotropic_elastic": "the displacement-only analytic twin",
 }

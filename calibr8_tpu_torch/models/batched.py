@@ -5,13 +5,16 @@ there): every array is (..., E) with the element axis last, small tensor
 algebra is written out over the leading axes.  They form the body of the
 fused assembly's plain version (fem/fused_assembly.py), and the CUDA
 kernels' model bodies (csrc/c8_element.cuh for the analytic twins,
-csrc/c8_hill.cuh, c8_hyper.cuh and c8_hypo.cuh for the implicit ones)
-follow them line by line, so the two agree to rounding.
+csrc/c8_hill.cuh, c8_hyper.cuh, c8_hypo.cuh and c8_hosford.cuh (with the
+eigensolver of c8_eig.cuh) for the implicit ones) follow them line by
+line, so the two agree to rounding.
 
 Analytic twins (elastic, small_J2) solve the local state in closed form;
 implicit twins (the small-strain Hill family, the finite-deformation
-hyper_J2 and hypo_hill families) run implicit_newton, and the assembly
-condenses dxi/dgu through their residual.  Every twin has the local residual C with the
+hyper_J2 and hypo_hill families, and the eigensolver twins small_hosford,
+hypo_hosford and hypo_barlat, whose local Newton freezes its branch at
+the first guess and takes a line search) run implicit_newton, and the
+assembly condenses dxi/dgu through their residual.  Every twin has the local residual C with the
 branch forced to a given path, which the adjoint blocks
 (fem/adjoint_blocks.py) differentiate.  Each twin takes grad_u (d, d, E)
 and, in its local-state methods (first_guess, pathfn, local_solve,
@@ -22,8 +25,9 @@ hypo twins' rate (F - F_prev) F^-1); for the others it may be None.  The
 stress measures read grad_u alone.  Tangent
 rules follow JAX's, which the plain version reproduces under
 torch.func.jvp: torch.where takes the tangent of the selected branch,
-torch.maximum splits the tangent evenly at a tie, t_norm adds 1e-30
-under the square root, and x ** n at n == 0 has a zero tangent in x.
+torch.maximum (and t_clip) splits the tangent evenly at a tie, t_norm
+adds 1e-30 under the square root, and x ** n at n == 0 has a zero tangent
+in x.
 """
 
 from __future__ import annotations
@@ -925,22 +929,285 @@ class BatchedHypoHillPlaneStress(BatchedHypoHillPlaneStrain):
         return torch.zeros_like(parT[0])
 
 
+def t_outer(v):
+    """(3, E) -> v v^T (3, 3, E)."""
+    return torch.stack([torch.stack([v[i] * v[j] for j in range(3)]) for i in range(3)])
+
+
+def t_powa(x, e, tiny=1e-300):
+    """|x|^e with a per-lane exponent, written exp(e log(|x| + tiny)) as
+    calibr8_tpu writes it (tiny is 0 in float32, as there)."""
+    return torch.exp(e * torch.log(torch.abs(x) + tiny))
+
+
+def t_clip(x, lo: float, hi: float):
+    """jnp.clip(x, lo, hi) = min(max(x, lo), hi), with JAX's tangent: half
+    of it at a tie with either bound (torch.clamp would pass all of it)."""
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)), torch.full_like(x, hi))
+
+
+def _mm_unrolled(A, B):
+    """(3, 3, E) @ (3, 3, E), each entry summed in k order, as calibr8_tpu's
+    t_mm and c8::mat_mul sum it: the eigenvector's column pick compares
+    the entries' norms."""
+    return torch.stack([torch.stack([A[i, 0] * B[0, j] + A[i, 1] * B[1, j] + A[i, 2] * B[2, j]
+                                     for j in range(3)]) for i in range(3)])
+
+
+def t_eig_sym33(A, eps=1e-12):
+    """Eigenvalues (descending) and eigenvectors of a symmetric (3, 3, E):
+    ((lam0, lam1, lam2), (v0, v1, v2)), each (E,) / (3, E) (calibr8_tpu
+    models/batched.py:1618-1667).  The closed trigonometric form: r =
+    det(B / p) / 2 clipped to [-1 + 1e-14, 1 - 1e-14] (a zero tangent
+    where the clip is active, half at a tie), phi = acos(r) / 3.  Each
+    eigenvector is the largest column of (A - lam_j I)(A - lam_k I),
+    picked branchlessly (strict >: the first of equal norms), e0 where
+    that column's norm is <= 1e3 eps; v1 is orthogonalized against v0 and
+    v2 = v0 x v1.  calibr8_tpu computes acos by a polynomial with two
+    Newton corrections (t_acos, for Mosaic); the port calls torch.acos,
+    whose value agrees within 1e-13 and whose tangent is -1 / sqrt(1 -
+    r^2)."""
+    q = t_trace(A) / 3.0
+    B = t_sub_diag(A, q)
+    p2 = usum(usum(B * B, 0), 0) / 6.0
+    p = torch.sqrt(p2 + eps * eps)
+    Bn = B / p
+    r = t_clip(t_det(Bn) / 2.0, -1.0 + 1e-14, 1.0 - 1e-14)
+    phi = torch.acos(r) / 3.0
+    lam0 = q + 2.0 * p * torch.cos(phi)
+    lam2 = q + 2.0 * p * torch.cos(phi + 2.0 * np.pi / 3.0)
+    lam1 = 3.0 * q - lam0 - lam2
+
+    def vec(lam_j, lam_k):
+        M = _mm_unrolled(t_sub_diag(A, lam_j), t_sub_diag(A, lam_k))
+        cols = [M[:, m] for m in range(3)]
+        norms = [usum(c * c, 0) for c in cols]
+        # arithmetic blends, as calibr8_tpu writes its selects
+        pick1 = (norms[1] > norms[0]).to(A.dtype)
+        va = pick1 * cols[1] + (1.0 - pick1) * cols[0]
+        na = pick1 * norms[1] + (1.0 - pick1) * norms[0]
+        pick2 = (norms[2] > na).to(A.dtype)
+        v = pick2 * cols[2] + (1.0 - pick2) * va
+        nmax = pick2 * norms[2] + (1.0 - pick2) * na
+        ok = (torch.sqrt(nmax) > 1e3 * eps).to(A.dtype)
+        one, zero = torch.ones_like(v[0]), torch.zeros_like(v[0])
+        v = ok * v + (1.0 - ok) * torch.stack([one, zero, zero])
+        return v / torch.sqrt(usum(v * v, 0) + eps * eps)
+
+    v0 = vec(lam1, lam2)
+    v1r = vec(lam2, lam0)
+    v1r = v1r - usum(v1r * v0, 0) * v0
+    v1 = v1r / torch.sqrt(usum(v1r * v1r, 0) + eps * eps)
+    v2 = torch.stack([v0[1] * v1[2] - v0[2] * v1[1],
+                      v0[2] * v1[0] - v0[0] * v1[2],
+                      v0[0] * v1[1] - v0[1] * v1[0]])
+    return (lam0, lam1, lam2), (v0, v1, v2)
+
+
+def _phi_from_total(vm, total, a, eps):
+    return vm * torch.exp(torch.log(torch.maximum(total, torch.full_like(total, eps))) / a)
+
+
+def t_hosford_phi_n(sigma, dev_sigma, a, eps=1e-30):
+    """Hosford's effective stress phi and flow normal n (calibr8_tpu
+    models/batched.py:1670-1695; reference small_hosford.cpp:226-266):
+    phi = vm (sum_ij |l_i - l_j|^a / 2)^(1/a) over the eigenvalue
+    differences of sigma scaled by vm = sqrt(3/2 |dev|^2), each clipped
+    to [-4, 4]; n = sum_i c_i v_i v_i^T."""
+    vm = torch.sqrt(1.5 * usum(usum(dev_sigma * dev_sigma, 0), 0) + eps)
+    (l0, l1, l2), (v0, v1, v2) = t_eig_sym33(sigma)
+    sl0, sl1, sl2 = l0 / vm, l1 / vm, l2 / vm
+    d01 = t_clip(sl0 - sl1, -4.0, 4.0)
+    d12 = t_clip(sl1 - sl2, -4.0, 4.0)
+    d20 = t_clip(sl2 - sl0, -4.0, 4.0)
+    total = 0.5 * (t_powa(d01, a) + t_powa(d12, a) + t_powa(d20, a))
+    phi = _phi_from_total(vm, total, a, eps)
+    ps = torch.maximum(phi, torch.full_like(phi, eps))
+    p01 = t_clip(l0 / ps - l1 / ps, -4.0, 4.0)
+    p12 = t_clip(l1 / ps - l2 / ps, -4.0, 4.0)
+    p20 = t_clip(l2 / ps - l0 / ps, -4.0, 4.0)
+    f01 = p01 * t_powa(p01, a - 2.0)
+    f12 = p12 * t_powa(p12, a - 2.0)
+    f20 = p20 * t_powa(p20, a - 2.0)
+    n = 0.5 * ((f01 - f20) * t_outer(v0) + (f12 - f01) * t_outer(v1)
+               + (f20 - f12) * t_outer(v2))
+    return phi, n
+
+
+def t_flatten_stress(s):
+    """(3, 3, E) -> the 6 components [00, 11, 22, 01, 12, 20]."""
+    return (s[0, 0], s[1, 1], s[2, 2], s[0, 1], s[1, 2], s[2, 0])
+
+
+def t_unflatten_stress(v):
+    return torch.stack([torch.stack([v[0], v[3], v[5]]), torch.stack([v[3], v[1], v[4]]),
+                        torch.stack([v[5], v[4], v[2]])])
+
+
+def t_barlat_L_apply(p, s):
+    """The Yld2004-18p linear transform of a flattened stress; p = the 9
+    coefficients [c01, c02, c10, c12, c20, c21, c33, c44, c55]."""
+    p01, p02, p10, p12, p20, p21, p33, p44, p55 = p
+    s0, s1, s2, s3, s4, s5 = s
+    o0 = ((p01 + p02) * s0 + (-2.0 * p01 + p02) * s1 + (p01 - 2.0 * p02) * s2) / 3.0
+    o1 = ((-2.0 * p10 + p12) * s0 + (p10 + p12) * s1 + (p10 - 2.0 * p12) * s2) / 3.0
+    o2 = ((-2.0 * p20 + p21) * s0 + (p20 - 2.0 * p21) * s1 + (p20 + p21) * s2) / 3.0
+    return (o0, o1, o2, p33 * s3, p44 * s4, p55 * s5)
+
+
+def t_barlat_phi_n(TC, sp, dp, a, eps=1e-30):
+    """Barlat Yld2004-18p effective stress and flow normal (calibr8_tpu
+    models/batched.py:1722-1765; reference yield_functions.hpp:104-330):
+    the eigenvalues s_i, d_j of the two transformed stresses L'(TC),
+    L''(TC); phi = vm (sum_ij |s_i - d_j|^a / 4)^(1/a) over differences
+    scaled by vm and clipped to [-8, 8]; n = L'^T(sum_i c'_i v'_i v'_i^T)
+    + L''^T(sum_j c''_j v''_j v''_j^T)."""
+    dev = t_dev3(TC)
+    vm = torch.sqrt(1.5 * usum(usum(dev * dev, 0), 0) + eps)
+    flat = t_flatten_stress(TC)
+    s_lam, s_V = t_eig_sym33(t_unflatten_stress(t_barlat_L_apply(sp, flat)))
+    d_lam, d_V = t_eig_sym33(t_unflatten_stress(t_barlat_L_apply(dp, flat)))
+    total = None
+    for i in range(3):
+        for j in range(3):
+            term = t_powa(t_clip(s_lam[i] / vm - d_lam[j] / vm, -8.0, 8.0), a)
+            total = term if total is None else total + term
+    phi = _phi_from_total(vm, 0.25 * total, a, eps)
+    ps = torch.maximum(phi, torch.full_like(phi, eps))
+    fac = [[None] * 3 for _ in range(3)]
+    for i in range(3):
+        for j in range(3):
+            dm = t_clip(s_lam[i] / ps - d_lam[j] / ps, -8.0, 8.0)
+            fac[i][j] = dm * t_powa(dm, a - 2.0)
+    sp_n = dp_n = None
+    for i in range(3):
+        so = (0.25 * (fac[i][0] + fac[i][1] + fac[i][2])) * t_outer(s_V[i])
+        do = (-0.25 * (fac[0][i] + fac[1][i] + fac[2][i])) * t_outer(d_V[i])
+        sp_n = so if sp_n is None else sp_n + so
+        dp_n = do if dp_n is None else dp_n + do
+    out = tuple(x + y for x, y in zip(t_barlat_L_apply(sp, t_flatten_stress(sp_n)),
+                                      t_barlat_L_apply(dp, t_flatten_stress(dp_n))))
+    return phi, t_unflatten_stress(out)
+
+
+class BatchedSmallHosford(_ImplicitTwin):
+    """Twin of SmallHosford (3D, mixed u/p; calibr8_tpu models/batched.py:
+    1768-1851, reference small_hosford.cpp:160-266): Hosford yield on the
+    deviatoric stress, hardening Y + K a + S (1 - exp(-D a)), f scaled by
+    2 mu.  Its local Newton freezes the branch at the first guess and
+    takes the line search (freeze_path).  xi (7, E) = [pstrain voigt (6),
+    alpha]; params (7, E) = [E, nu, Y, a, K, S, D]."""
+
+    name = "small_hosford"
+    freeze_path = True
+    newton_iters = 30
+
+    def __init__(self, model):
+        if model.dim != 3:
+            raise NotImplementedError("small_hosford is a 3D model (calibr8_tpu's twin is 3D)")
+        super().__init__(model)
+
+    def _flow(self, alpha, parT):
+        Y, K, S, D = parT[2], parT[4], parT[5], parT[6]
+        return Y + K * alpha + S * (1.0 - torch.exp(-D * alpha))
+
+    def _f_and_n(self, xiT, gu, parT):
+        # the yield is read on the deviator (calibr8_tpu small_strain.py
+        # cauchy_full: pressure-insensitive through the eigen differences)
+        s = self.dev_cauchy(xiT, gu, parT)
+        phi, n = t_hosford_phi_n(s, s, parT[3])
+        return (phi - self._flow(xiT[6], parT)) / (2.0 * self._mu(parT)), n
+
+    def residual(self, xiT, xipT, gu, parT, path, gu_prev=None):
+        ps = t_voigt_to_sym(xiT[:6], 3)
+        ps_old = t_voigt_to_sym(xipT[:6], 3)
+        f, n = self._f_and_n(xiT, gu, parT)
+        dgam = xiT[6] - xipT[6]
+        w = (path == 1).to(xiT.dtype)
+        R_s = (ps - ps_old) - (w * dgam) * n
+        R_a = w * f + (1.0 - w) * dgam
+        return torch.cat([t_sym_to_voigt(R_s, 3), R_a[None]])
+
+
+class BatchedHypoHosford(BatchedHypoHill):
+    """Twin of HypoHosford (3D, mixed u/p; calibr8_tpu models/batched.py:
+    1854-1901, reference hypo_hosford.cpp): Hosford yield on the unrotated
+    stress TC, hardening Y + S (1 - exp(-D a)) (K unused, as there),
+    residual scaled by 1 / (2 mu), the frozen branch and the line search;
+    the hypo kinematics of BatchedHypoHill.  xi (7, E) = [TC voigt (6),
+    alpha]; params (7, E) = [E, nu, Y, a, K, S, D]."""
+
+    name = "hypo_hosford"
+    freeze_path = True
+    newton_iters = 30
+
+    def __init__(self, model):
+        if model.dim != 3:
+            raise NotImplementedError(f"{model.name} is a 3D model (calibr8_tpu's twin is 3D)")
+        super().__init__(model)
+
+    def _flow(self, alpha, parT):
+        Y, S, D = parT[2], parT[5], parT[6]
+        return Y + S * (1.0 - torch.exp(-D * alpha))
+
+    def _phi_n(self, TC, parT):
+        return t_hosford_phi_n(TC, t_dev3(TC), parT[3])
+
+    def _f_and_n(self, xiT, parT):
+        phi, n = self._phi_n(t_voigt_to_sym(xiT[:6], 3), parT)
+        return (phi - self._flow(xiT[6], parT)) / (2.0 * self._mu(parT)), n
+
+    def residual_aux(self, xiT, xipT, d, parT, path):
+        TC = t_voigt_to_sym(xiT[:6], 3)
+        R_TC = (TC - self._elastic_update(t_voigt_to_sym(xipT[:6], 3), d, parT)) / (
+            2.0 * self._mu(parT))
+        f, n = self._f_and_n(xiT, parT)
+        dgam = xiT[6] - xipT[6]
+        w = (path == 1).to(xiT.dtype)
+        R_a = w * f + (1.0 - w) * dgam
+        return torch.cat([t_sym_to_voigt(R_TC + (w * dgam) * n, 3), R_a[None]])
+
+
+class BatchedHypoBarlat(BatchedHypoHosford):
+    """Twin of HypoBarlat (3D, mixed u/p; calibr8_tpu models/batched.py:
+    1904-1953, reference hypo_barlat.cpp): Barlat Yld2004-18p yield on TC
+    (two linear transforms and two eigendecompositions per evaluation),
+    hardening Y + K a + S (1 - exp(-D a)).  xi (7, E); params (25, E) =
+    [E, nu, Y, a, K, S, D, sp_* (9), dp_* (9)]."""
+
+    name = "hypo_barlat"
+
+    def _flow(self, alpha, parT):
+        Y, K, S, D = parT[2], parT[4], parT[5], parT[6]
+        return Y + K * alpha + S * (1.0 - torch.exp(-D * alpha))
+
+    def _phi_n(self, TC, parT):
+        return t_barlat_phi_n(TC, tuple(parT[7 + k] for k in range(9)),
+                              tuple(parT[16 + k] for k in range(9)), parT[3])
+
+
 def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
     """The fixed-iteration local Newton of the implicit twins, per lane
-    (calibr8_tpu models/batched.py:561-671, without its frozen-path and
-    line-search options, which these twins do not use).  It starts from
-    the twin's first_guess (xi_prev, or the finite-deformation twins'
-    elastic trial state, batched.py:582).  A twin with `precompute` (the
-    hypo family) has its xi-independent kinematics formed once per call
-    and its residual read through residual_aux (batched.py:594-603).  Each
-    iteration takes the branch from the current xi, marks a lane
+    (calibr8_tpu models/batched.py:561-671).  It starts from the twin's
+    first_guess (xi_prev, or the finite-deformation twins' elastic trial
+    state, batched.py:582).  A twin with `precompute` (the hypo family)
+    has its xi-independent kinematics formed once per call and its
+    residual read through residual_aux (batched.py:594-603).  Each
+    iteration takes the branch from the current xi, or, for a twin with
+    `freeze_path` (the Hosford / Barlat family), the branch chosen once at
+    the first guess, which is also the path returned; it marks a lane
     done once ||C|| < abs_tol (before its update), and adds the step
-    times (1 - done) * all(isfinite(dxi)); the loop ends after
-    newton_iters iterations or when every lane is done.  Returns (xiT,
-    path, failed), path and failed (E,) int32, failed where ||C(xi)|| >=
-    max(10 abs_tol, 1e-30) at the end.  With `iters` an (E,) int32
-    tensor, each lane's number of iterations before it was done (the
-    CUDA kernel's count) is written there."""
+    times (1 - done) * all(isfinite(dxi)).  The frozen-branch twins also
+    take the line search (calibr8_tpu's `local_line_search` defaults to
+    `freeze_path`, and no twin sets it; batched.py:586, 621-647): the
+    step is alpha dxi: four trials at xi + alpha ok dxi, alpha halved
+    until one has 1/2 ||C||^2 <= phi0 (1 - 2e-4 alpha) with every C
+    finite, phi0 = 1/2 ||C(xi)||^2, and kept from then on (1/16 if none
+    was accepted).  The loop ends after newton_iters iterations or when
+    every lane is done.  Returns (xiT, path, failed), path and failed (E,)
+    int32, failed where ||C(xi)|| >= max(10 abs_tol, 1e-30) at the end.
+    With `iters` an (E,) int32 tensor, each lane's number of iterations
+    before it was done (the CUDA kernel's count) is written there."""
     nxi = bm.nxi
     xi = bm.first_guess(xipT, gu, parT, gu_prev)
     dtype, E = xi.dtype, xi.shape[-1]
@@ -953,12 +1220,14 @@ def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
         def resid(z, path):
             return bm.residual(z, xipT, gu, parT, path, gu_prev)
 
+    freeze = getattr(bm, "freeze_path", False)
+    path0 = bm.pathfn(xi, xipT, gu, parT, gu_prev) if freeze else None
     done = torch.zeros(E, dtype=torch.int32, device=xi.device)
     count = torch.zeros_like(done)
     for _ in range(bm.newton_iters):
         if bool(done.min() >= 1):
             break
-        path = bm.pathfn(xi, xipT, gu, parT, gu_prev)
+        path = path0 if freeze else bm.pathfn(xi, xipT, gu, parT, gu_prev)
         R, cols = jvp_columns(lambda z: resid(z, path), xi)
         rnorm = torch.sqrt(usum(R * R, 0))
         done = torch.maximum(done, (rnorm < bm.abs_tol).to(torch.int32))
@@ -969,9 +1238,22 @@ def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
         ok = fin[0]
         for k in range(1, nxi):
             ok = ok * fin[k]
+        if freeze:
+            phi0 = 0.5 * rnorm * rnorm
+            alpha = torch.ones(E, dtype=dtype, device=xi.device)
+            accepted = torch.zeros_like(done)
+            for _ in range(4):
+                Rt = resid(xi + (alpha * ok) * dxi, path)
+                phit = 0.5 * usum(Rt * Rt, 0)
+                good = ((phit <= phi0 * (1.0 - 2.0 * 1e-4 * alpha))
+                        & torch.isfinite(Rt).all(0)).to(torch.int32)
+                keep = torch.maximum(good, accepted).to(dtype)
+                alpha = keep * alpha + (1.0 - keep) * (0.5 * alpha)
+                accepted = torch.maximum(accepted, good)
+            dxi = alpha * dxi
         gate = (1 - done).to(dtype) * ok
         xi = xi + gate * dxi
-    path = bm.pathfn(xi, xipT, gu, parT, gu_prev)
+    path = path0 if freeze else bm.pathfn(xi, xipT, gu, parT, gu_prev)
     Rf = resid(xi, path)
     rnorm = torch.sqrt(usum(Rf * Rf, 0))
     failed = (rnorm >= max(bm.abs_tol * 10.0, 1e-30)).to(torch.int32)
@@ -1002,16 +1284,21 @@ BATCHED_MODELS = {
     "hypo_hill": BatchedHypoHill,
     "hypo_hill_plane_strain": BatchedHypoHillPlaneStrain,
     "hypo_hill_plane_stress": BatchedHypoHillPlaneStress,
+    "small_hosford": BatchedSmallHosford,
+    "hypo_hosford": BatchedHypoHosford,
+    "hypo_barlat": BatchedHypoBarlat,
 }
 
 # the CUDA kernels' model index (csrc/fused_assembly.cu c8_fused_assembly
-# for the analytic twins, csrc/implicit_assembly.cu c8_implicit_assembly
-# for the implicit ones)
+# for the analytic twins; for the implicit ones csrc/implicit_assembly.cu
+# c8_implicit_assembly, ids 0-8, and, for the eigensolver twins,
+# csrc/implicit_eig.cu (9, 10) and csrc/implicit_barlat.cu (11))
 KERNEL_MODEL_ID = {
     "elastic": 0, "small_J2": 1,
     "small_hill": 0, "small_hill_plane_strain": 1, "small_hill_plane_stress": 2,
     "hyper_J2": 3, "hyper_J2_plane_strain": 4, "hyper_J2_plane_stress": 5,
     "hypo_hill": 6, "hypo_hill_plane_strain": 7, "hypo_hill_plane_stress": 8,
+    "small_hosford": 9, "hypo_hosford": 10, "hypo_barlat": 11,
 }
 
 

@@ -3,11 +3,14 @@
 full-width decks: the values chip_smoke.py holds the port to.
 
     JAX_PLATFORMS=cpu python3 chip_reference.py [plane_stress] [hill] [hyper_plane_stress]
-    JAX_PLATFORMS=cpu python3 chip_reference.py adjoint DIR [bench] [hill] [hyper] [hypo]
+                                                [barlat] [hypo_hosford8]
+    JAX_PLATFORMS=cpu python3 chip_reference.py adjoint DIR [bench] [hill] [hyper] [hypo] [hosford]
     python3 chip_reference.py sweep DIR [bench] [hill] [hyper] [hypo]
     JAX_PLATFORMS=cpu python3 chip_reference.py mg DIR [cube] [cube_step] [notch] [adjoint] [hypo_notch]
 
-The first form runs each named deck (all by default) through
+The first form runs each named deck (the first three by default; the
+eigensolver decks chip_smoke.eig_deck("hypo_barlat", 32) and
+eig_deck("hypo_hosford", 8) by name) through
 calibr8_tpu's Problem(...).solve_primal() and prints one JSON line per
 deck with J, the per-step contributions and the wall time.
 
@@ -70,7 +73,9 @@ def primal_references(names, chip_smoke) -> None:
     decks = {"plane_stress": ("J_REF_PLANE_STRESS_H004", chip_smoke.plane_stress_deck(0.004)),
              "hill": ("J_REF_HILL_N32", chip_smoke.hill_deck(32)),
              "hyper_plane_stress": ("J_REF_HYPER_PLANE_STRESS_H004",
-                                    chip_smoke.hyper_plane_stress_deck(0.004))}
+                                    chip_smoke.hyper_plane_stress_deck(0.004)),
+             "barlat": ("J_REF_BARLAT_N32", chip_smoke.eig_deck("hypo_barlat", 32)),
+             "hypo_hosford8": ("J_REF_HYPO_HOSFORD_N8", chip_smoke.eig_deck("hypo_hosford", 8))}
     for name in names:
         const, deck = decks[name]
         t0 = time.perf_counter()
@@ -97,7 +102,7 @@ def adjoint_references(names, chip_smoke, out_dir) -> None:
 
     for name in names:
         const = {"bench": "G_REF_N32", "hill": "G_REF_HILL_N32", "hyper": "G_REF_HYPER",
-                 "hypo": "G_REF_HYPO"}[name]
+                 "hypo": "G_REF_HYPO", "hosford": "G_REF_HOSFORD"}[name]
         t0 = time.perf_counter()
         spec = load_deck(chip_smoke.adjoint_deck(name))
         prob = Problem(spec)

@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero without the result lines:
 
  1. device: the card's name and power limit (nvidia-smi), the torch and
-    CUDA versions, the build of the six CUDA libraries from
+    CUDA versions, the build of the eight CUDA libraries from
     calibr8_tpu_torch/csrc with nvcc (one process per source, all in
     parallel), with ptxas's register and spill report, and the two
     multigrid meshes refined on the host.
@@ -18,7 +18,12 @@ Phases, in order; any failure exits non-zero without the result lines:
     at notch2D h=0.004 small_hill_plane_stress, hyper_J2_plane_stress and
     hypo_hill_plane_stress (displacement only) and hyper_J2_plane_strain
     and hypo_hill_plane_strain (mixed u/p), the finite-deformation cases
-    with x != x_prev; the EBE and both ELL kernels held once more
+    with x != x_prev; the eigensolver libraries (implicit_eig.cu,
+    implicit_barlat.cu) at cube n=32 small_hosford, hypo_hosford and
+    hypo_barlat (eig_deck), with the
+    elements whose principal stresses nearly coincide counted and each
+    element's J held to its conditioning (EIG_J_EPS); the EBE and both
+    ELL kernels held once more
     at notch2D's shapes (nde = 6, ndpn = 2, and nde = 9, ndpn = 3).
     The transposed ELL kernel (3b) is also held, with the whole transposed
     operator, at the bench deck's shapes.  The multigrid level apply
@@ -36,13 +41,16 @@ Phases, in order; any failure exits non-zero without the result lines:
     launches counted, against numpy, then against its plain version.
  3. the goldens of tests/decks.py on the card in float64 (cube_elastic,
     notch2D_small_J2, the small-strain Hill family's three, the hyper_J2
-    family's five and the hypo_hill family's three), and the notch deck
-    once more through GMRES on the ELL operator.
+    family's five, the hypo_hill family's three, notch_small_hosford and
+    notch_hypo_barlat), and the notch deck once more through GMRES on the
+    ELL operator.
  4. the full-width primal solves (float64, GMRES + block Gauss-Seidel)
     through Problem(...).solve_primal(): the bench deck (cube n=32,
     small_J2) with the assembled ELL matrix as the Krylov operator and
     once more, for 1 load step, with the matrix-free EBE operator; cube
-    n=32 small_hill, hyper_J2 and hypo_hill (mixed u/p, 2 load steps);
+    n=32 small_hill, hyper_J2, hypo_hill, small_hosford and hypo_barlat
+    and cube n=8 hypo_hosford (mixed u/p, 2 load steps; the eigensolver
+    decks with the pull tilted, eig_deck);
     notch2D h=0.004 small_hill_plane_stress and hyper_J2_plane_stress
     ('mechanics_plane_stress', 2 load steps).  Each run's launch counts
     are set to 0 just before it and read just after; J is held at rel
@@ -56,10 +64,11 @@ Phases, in order; any failure exits non-zero without the result lines:
     calibr8_tpu's (J_REF_MG_*), 3a and 3c launched.
  5. the adjoint (float64), through AdjointObjective's value and
     gradient: (a) against finite differences, log10 error drop > 6: the
-    notch2D small_J2 8-step deck and the hyper_J2_plane_stress and
-    hypo_hill_plane_stress twin cases on notch2D h=0.12 (fd_decks); (b)
-    the bench deck, (c) cube n=32 small_hill, (d) cube n=32 hyper_J2 and
-    hypo_hill (adjoint_deck), dJ/dp held at
+    notch2D small_J2 8-step deck, the hyper_J2_plane_stress and
+    hypo_hill_plane_stress twin cases on notch2D h=0.12 and small_hosford
+    on cube n=3 (fd_decks); (b) the bench deck, (c) cube n=32 small_hill,
+    (d) cube n=32 hyper_J2, hypo_hill and small_hosford (adjoint_deck),
+    dJ/dp held at
     1e-5 to calibr8_tpu's (G_REF_*), every adjoint relative residual
     <= 0.5, ell_spmv_T launched; (e) dJ/dp of the cube MG deck with the
     multigrid transposed solves (Adjoint(mg_factory=...)), reuse none and
@@ -150,6 +159,25 @@ G_REF_HYPO = {
     "body/S": 5.991462541557953e-06, "body/D": 5.850828646630918e-06,
 }
 
+# J of the eigensolver decks (eig_deck: cube n=32 small_hosford, the
+# adjoint reference's primal; hypo_barlat at n=32; hypo_hosford at n=8)
+# and dJ/dp of adjoint_deck("hosford"), from calibr8_tpu (JAX 0.9.0) on
+# the 8-core CPU of the machine with the card, as parallel processes of
+# one call: chip_reference.py adjoint DIR hosford (primal 471 s, adjoint
+# 98 s; relative residuals 5.75e-04 and 4.07e-04 for steps 2, 1),
+# chip_reference.py barlat (1007 s; steps 8.665313580777104e-04,
+# 1.2386848040370894e-03) and hypo_hosford8 (48 s; steps
+# 7.125418014962784e-04, 7.762901229207415e-04).
+J_REF_HOSFORD_N32 = 0.001914482788125576
+J_REF_BARLAT_N32 = 0.0021052161621148
+J_REF_HYPO_HOSFORD_N8 = 0.0014888319244170199
+G_REF_HOSFORD = {
+    "body/E": -0.000323270603727111, "body/nu": -0.00035603151665554813,
+    "body/Y": 0.00023196715048189365, "body/a": 1.617009380979451e-05,
+    "body/K": 7.663403403798524e-05, "body/S": 1.467065778951039e-05,
+    "body/D": 1.4033585450567617e-05,
+}
+
 # J of hypo_mg_notch_deck() from calibr8_tpu (JAX 0.9.0) on the 8-core CPU of
 # the machine with the card: chip_reference.py mg DIR hypo_notch (523 s;
 # steps 9.999089119281147e-04, 2.1745553106699744e-03; 8 + 15 Newton
@@ -161,6 +189,11 @@ J_REF_HYPO_MG_NOTCH = 3.1744642225980894e-03
 # finite-difference checks
 FD_HYPER_ACTIVE = {"E": [800.0, 1200.0], "Y": [5.0, 15.0], "S": [2.5, 7.5], "K": [25.0, 75.0]}
 FD_HYPO_ACTIVE = {"E": [800.0, 1200.0], "Y": [8.0, 12.0], "S": [4.0, 6.0], "R11": [1.0, 1.2]}
+# small_hosford's: wide ranges, so that the unit step in canonical
+# coordinates leaves the linear range (at E [800, 1200], Y [8, 12], a
+# [6, 10], K [40, 60] the quotients' error starts at 1e-7 and the drop
+# stays at 5.5 on the CPU; at these ranges 7.2)
+FD_HOSFORD_ACTIVE = {"E": [500.0, 1500.0], "Y": [5.0, 15.0], "a": [4.0, 12.0], "K": [0.0, 100.0]}
 
 G_REF_HILL_N32 = {
     "body/E": -0.0003692167601930235, "body/nu": -0.00037353152717606325,
@@ -278,19 +311,21 @@ ADJOINT_ACTIVE = {
     "hyper": ("E", "nu", "K", "Y"),
     "mg": ("E", "nu", "K", "Y"),
     "hypo": ("E", "nu", "Y", "S", "D", "R00", "R11", "R01"),
+    "hosford": ("E", "nu", "Y", "a", "K", "S", "D"),
 }
 
 
 def adjoint_deck(name: str) -> dict:
     """The full-width deck `name` (the bench deck, hill_deck(32),
-    hyper_deck(32), hypo_deck(32) or, for "mg", mg_cube_deck()) with an `inverse`
-    sublist: the parameters of ADJOINT_ACTIVE[name] active over [0.8, 1.2]
-    times their deck values."""
+    hyper_deck(32), hypo_deck(32), eig_deck("small_hosford", 32) or, for
+    "mg", mg_cube_deck()) with an `inverse` sublist: the parameters of
+    ADJOINT_ACTIVE[name] active over [0.8, 1.2] times their deck values."""
     from calibr8_tpu_torch.profile_primal import bench_deck
 
     deck = {"bench": lambda: bench_deck(32), "hill": lambda: hill_deck(32),
             "hyper": lambda: hyper_deck(32), "mg": mg_cube_deck,
-            "hypo": lambda: hypo_deck(32)}[name]()
+            "hypo": lambda: hypo_deck(32),
+            "hosford": lambda: eig_deck("small_hosford", 32)}[name]()
     mats = deck["residuals"]["local residual"]["materials"]["body"]
     deck["inverse"] = {"materials": {"body": {
         k: [0.8 * mats[k], 1.2 * mats[k]] for k in ADJOINT_ACTIVE[name]}}}
@@ -363,6 +398,40 @@ def hypo_plane_stress_deck(h: float) -> dict:
     lr = deck["residuals"]["local residual"]
     lr["type"] = "hypo_hill_plane_stress"
     lr["materials"] = {"body": dict(HYPO_PS_MAT)}
+    return deck
+
+
+# the eigensolver twin cases' constants (calibr8_tpu/models/twin_cases.py:82-113)
+HOSFORD_MAT = {"E": 1000.0, "nu": 0.25, "Y": 10.0, "a": 8.0, "K": 50.0, "S": 5.0, "D": 2.0}
+EIG_MATS = {
+    "small_hosford": HOSFORD_MAT,
+    "hypo_hosford": {**HOSFORD_MAT, "K": 0.0},
+    "hypo_barlat": {
+        **HOSFORD_MAT,
+        "sp_01": 1.0, "sp_02": 1.05, "sp_10": 0.95, "sp_12": 1.1, "sp_20": 0.9, "sp_21": 1.02,
+        "sp_33": 1.04, "sp_44": 0.97, "sp_55": 1.06,
+        "dp_01": 0.98, "dp_02": 1.03, "dp_10": 1.07, "dp_12": 0.92, "dp_20": 1.01, "dp_21": 0.96,
+        "dp_33": 1.08, "dp_44": 1.02, "dp_55": 0.94,
+    },
+}
+
+
+def eig_deck(model: str, n: int) -> dict:
+    """The bench deck (bench.py:106-147) on cube n with an eigensolver twin
+    (`small_hosford`, `hypo_hosford`, `hypo_barlat`) at its twin case's
+    constants, the pull on ymax tilted across x (0.02 t (0.5 + x)).  Under
+    the bench deck's uniform pull every element is in uniaxial tension,
+    where two principal stresses are equal: calibr8_tpu's local Newton of
+    the two Hosford twins then stalls at ||C|| ~ 1e-9 (its eigenvector
+    tangents are undefined there) and its primal stops at the first
+    plastic step; the tilt makes the field non-uniform (PERF.md)."""
+    from calibr8_tpu_torch.profile_primal import bench_deck
+
+    deck = bench_deck(n)
+    deck["dirichlet bcs"]["expression"]["bc 4"] = [0, 1, "ymax", "0.02 * t * (0.5 + x)"]
+    lr = deck["residuals"]["local residual"]
+    lr["type"] = model
+    lr["materials"] = {"body": dict(EIG_MATS[model])}
     return deck
 
 
@@ -496,6 +565,23 @@ GOLDENS = {
               {**VOCE_MAT, **UNIT_R}, bcs_3d(0.005), 4),
         7.28241826014197e-04, 1e-8,
     ),
+    "notch_small_hosford": (
+        _deck({"type": "notch3D", "h": 0.15, "lz": 0.1, "nz": 1}, "small_hosford",
+              {"E": 1000.0, "nu": 0.25, "Y": 2.0, "a": 100.0, "K": 0.0, "S": 10.0, "D": 2.0},
+              bcs_3d(0.001), 4),
+        1.39554129894319e-04, 1e-8,
+    ),
+    "notch_hypo_barlat": (
+        _deck({"type": "notch3D", "h": 0.15, "lz": 0.1, "nz": 1}, "hypo_barlat", {
+            "E": 70e3, "nu": 0.3, "Y": 200.0, "a": 8.0, "K": 0.0, "S": 200.0, "D": 20.0,
+            "sp_01": 1.241024, "sp_02": 1.078271, "sp_10": 1.216463, "sp_12": 1.223867,
+            "sp_20": 1.093105, "sp_21": 0.889161, "sp_33": 0.501909, "sp_44": 0.557173,
+            "sp_55": 1.349094,
+            "dp_01": 0.775366, "dp_02": 0.922743, "dp_10": 0.765487, "dp_12": 0.793356,
+            "dp_20": 0.918689, "dp_21": 1.027625, "dp_33": 1.115833, "dp_44": 1.112273,
+            "dp_55": 0.589787}, bcs_3d(0.01), 4),
+        1.31426770394029e-03, 1e-8,
+    ),
 }
 
 # kernel -> (source, the TPU kernel it replaces)
@@ -507,6 +593,13 @@ KERNELS = {
     # the plane twins' are in the phase-2 records)
     "implicit_assembly": ("calibr8_tpu_torch/csrc/implicit_assembly.cu",
                           "calibr8_tpu/fem/pallas_assembly.py:496"),
+    # kernel 1b's eigensolver twins: the line carries cube n=32
+    # small_hosford's figures and, in its `hypo_hosford` entry, that
+    # twin's; implicit_barlat's, cube n=32 hypo_barlat's
+    "implicit_eig": ("calibr8_tpu_torch/csrc/implicit_eig.cu",
+                     "calibr8_tpu/fem/pallas_assembly.py:496"),
+    "implicit_barlat": ("calibr8_tpu_torch/csrc/implicit_barlat.cu",
+                        "calibr8_tpu/fem/pallas_assembly.py:496"),
     "ebe_matvec": ("calibr8_tpu_torch/csrc/ebe_matvec.cu",
                    "calibr8_tpu/fem/pallas_matvec.py:49"),
     "ell_spmv": ("calibr8_tpu_torch/csrc/ell_spmv.cu",
@@ -844,7 +937,11 @@ F32_LOCAL_TOL = 1e-6
 # the hyper_J2 family's local residual holds Ie ~ 1 and lambda_z ~ 1, where
 # 1e-6 is ~16 float32 ulps: at 1e-6 up to 2% of its elements stop one
 # iteration apart in the two versions (PERF.md has the runs); its float32
-# check runs at bench.py's 1e-5, and so does the hypo_hill family's
+# check runs at bench.py's 1e-5, and so do the hypo_hill family's and
+# hypo_hosford's and hypo_barlat's.  small_hosford, small strain, takes the
+# Hill family's 1e-6: its strain-unit residual carries a float32 error
+# that the last local step at 1e-5 passes on to xi, and the two versions'
+# R then differ by 3.4e-4 of max|R|; at 1e-6 by 2.7e-5 (PERF.md)
 F32_LOCAL_TOL_FINITE = 1e-5
 # at most this share of a check's elements may fail their local Newton
 MAX_FAILED_SHARE = 1e-4
@@ -862,14 +959,86 @@ MAX_FAILED_SHARE = 1e-4
 IMPLICIT_LIMITS = {"float64": dict(xi=1e-12, R=1e-12, J=1e-11, iters_agree=0.9999),
                    "float32": dict(R=1e-4, J=1e-4, path_agree=0.999, iters_agree=0.99)}
 APART_FACTOR = 100.0
+# The eigensolver twins: near an equal pair of principal values (of the
+# Hosford stress, or of either of Barlat's transformed stresses) the
+# eigenvectors' tangents amplify rounding.  The column of (A - lam_j I)
+# (A - lam_k I) that gives a vector is of size ~g |A|^2 for a relative gap
+# g, so its rounding is eps / g of it and that of its tangent eps / g^2,
+# and g^2 ~ 1 - |r| (r = det(B / p) / 2).  Measured (PERF.md): an
+# element's J differs between the two versions by ~1e-17..2e-16 / (1 - |r|)
+# of max|J| in float64.  So each element's J is held to max(the limit
+# above, EIG_J_EPS eps / (1 - |r|)), 1 - |r| the least of both versions'
+# final states and the first guess, and xi and R to the limits above; the
+# elements where that bound is above the limit are counted
+# ("ill_conditioned"), and so are those with 1 - |r| <= CLIP_SENSITIVE,
+# where the clip of r at 1 - 1e-14 turns on rounding.  In float32 the
+# clip's bound rounds to 1: a local Newton iterate whose two principal
+# values round equal has r = 1, where acos' is infinite, and its lane turns
+# NaN.  Which iterates land there is decided by rounding, so the two
+# versions' non-finite lanes differ; they are counted, left out of the
+# errors, and must stay under EIG_NONFINITE_SHARE of the elements (float64
+# has none: its bound keeps acos' finite).
+EIG_J_EPS = 10.0
+CLIP_SENSITIVE = 1e-12
+EIG_NONFINITE_SHARE = 1e-3
+
+
+def worst_elements(bm, out_k, out_p, x, x_prev, xi_prev, P, disc, iters, iters_p, n=5):
+    """The n elements with the largest |J_kernel - J_plain| (over max|J|):
+    that error, 1 - |r| in each version, the local counts, the path and
+    the condition number of dC/dxi at the plain version's state."""
+    from calibr8_tpu_torch.mechanics.global_residual import elem_kinematics
+    from calibr8_tpu_torch.models.batched import jvp_columns
+
+    Jk, Jp = out_k[1], out_p[1]
+    fin = torch.isfinite(Jk).all(0).all(0) & torch.isfinite(Jp).all(0).all(0)
+    err = torch.where(fin, (Jk - Jp).abs().amax((0, 1)), torch.zeros_like(Jk[0, 0]))
+    err = err / Jp[..., fin].abs().max()
+    idx = err.topk(n).indices
+    gu = elem_kinematics(disc.spec, x[disc.edofs[idx]].T, disc.gN_T[..., idx])
+    gup = None if x_prev is None else elem_kinematics(disc.spec, x_prev[disc.edofs[idx]].T,
+                                                      disc.gN_T[..., idx])
+    parT = P[disc.es_ids[idx]].T
+    xiT, xipT, path = out_p[2][:, idx], xi_prev[idx].T, out_p[3][idx]
+    _, cols = jvp_columns(lambda z: bm.residual(z, xipT, gu, parT, path, gup), xiT)
+    cond = torch.linalg.cond(cols.permute(2, 1, 0).double())
+    omr = [eig_one_minus_r(bm, o[2][:, idx], gu, parT) for o in (out_k, out_p)]
+    return [dict(elem=int(e), J_err=float(err[e]), one_minus_r=(float(omr[0][i]), float(omr[1][i])),
+                 iters=(int(iters[e]), int(iters_p[e])), path=int(path[i]), cond=float(cond[i]))
+            for i, e in enumerate(idx.tolist())]
+
+
+def eig_one_minus_r(bm, xiT, gu, parT):
+    """min over the eigendecompositions an eigensolver twin's residual
+    runs of 1 - |det(B / p) / 2| (before the clip), per element."""
+    from calibr8_tpu_torch.models import batched as tb
+
+    def one(A):
+        Bm = tb.t_sub_diag(A, tb.t_trace(A) / 3.0)
+        p = torch.sqrt(tb.usum(tb.usum(Bm * Bm, 0), 0) / 6.0 + 1e-24)
+        return 1.0 - (tb.t_det(Bm / p) / 2.0).abs()
+
+    if bm.name == "small_hosford":
+        return one(bm.dev_cauchy(xiT, gu, parT))
+    TC = tb.t_voigt_to_sym(xiT[:6], 3)
+    if bm.name == "hypo_hosford":
+        return one(TC)
+    flat = tb.t_flatten_stress(TC)
+    return torch.minimum(*(one(tb.t_unflatten_stress(tb.t_barlat_L_apply(
+        tuple(parT[k0 + k] for k in range(9)), flat))) for k0 in (7, 16)))
 
 
 def check_implicit(label, prob, scale, results):
     """The implicit assembly against its plain version on prob's Disc, in
     prob's dtype; records (and returns) the check."""
-    from calibr8_tpu_torch.fem.fused_assembly import fused_assembly_plain, implicit_assembly
+    from calibr8_tpu_torch.fem.fused_assembly import (
+        IMPLICIT_LIB, fused_assembly_plain, implicit_assembly,
+    )
+    from calibr8_tpu_torch.mechanics.global_residual import elem_kinematics
 
     disc, bm = prob.disc, prob.assembler.bmodel
+    kname = IMPLICIT_LIB.get(bm.name, ("implicit_assembly",))[0]
+    eig = getattr(bm, "freeze_path", False)
     dn = str(disc.dtype).split(".")[1]
     w = 4 if disc.dtype == torch.float32 else 8
     spec = disc.spec
@@ -890,10 +1059,34 @@ def check_implicit(label, prob, scale, results):
     # primal's Newton never uses (it backtracks on nfail > 0).
     converged = (out_k[4] == 0) & (out_p[4] == 0)
     compared = same_path & converged
-    split = bm.finite_deformation
+    # the twins with tolerance-stopped Newtons of many iterations: the
+    # finite-deformation ones and the eigensolver ones (30, line search)
+    split = bm.finite_deformation or eig
     apart = compared & ~same_iters if split else torch.zeros_like(compared)
     compared = compared & ~apart
     apart_lim = APART_FACTOR * bm.abs_tol
+    # a non-finite output lane is counted, never masked
+    nonfinite = [~torch.isfinite(t.reshape(-1, E)).all(0) for t in (*out_k[:3], *out_p[:3])]
+    nf_k = nonfinite[0] | nonfinite[1] | nonfinite[2]
+    nf_p = nonfinite[3] | nonfinite[4] | nonfinite[5]
+    eig_rec = {}
+    jlim = None
+    if eig:
+        gu = elem_kinematics(spec, x[disc.edofs].T, disc.gN_T)
+        gup = None if x_prev is None else elem_kinematics(spec, x_prev[disc.edofs].T, disc.gN_T)
+        parT = P[disc.es_ids].T
+        xi0 = bm.first_guess(xi_prev.T, gu, parT, gup)
+        omr = torch.fmin(torch.fmin(eig_one_minus_r(bm, out_k[2], gu, parT),
+                                    eig_one_minus_r(bm, out_p[2], gu, parT)),
+                         eig_one_minus_r(bm, xi0, gu, parT))
+        compared = compared & ~nf_k & ~nf_p
+        apart = apart & ~nf_k & ~nf_p
+        jlim = torch.clamp(EIG_J_EPS * torch.finfo(disc.dtype).eps / omr,
+                           min=IMPLICIT_LIMITS[dn]["J"])
+        eig_rec = dict(ill_conditioned=int((jlim > IMPLICIT_LIMITS[dn]["J"]).sum()),
+                       clip_sensitive=int((omr <= CLIP_SENSITIVE).sum()),
+                       min_one_minus_r=float(omr.min()),
+                       nonfinite_both=int((nf_k & nf_p).sum()))
 
     def errors(mask):
         return {name: rel_err(a[..., mask], b[..., mask]) if bool(mask.any()) else (0.0, 0.0)
@@ -908,10 +1101,28 @@ def check_implicit(label, prob, scale, results):
     else:
         keys = ("R", "J")
         ok = agree >= lim["path_agree"]
-    ok = ok and all(errs[k][0] <= lim[k] and apart_err[k][0] <= apart_lim for k in keys)
+    if eig:
+        # J element by element against its conditioning bound (against
+        # max(APART_FACTOR abs_tol, that bound) where the counts differ)
+        Jmax = out_p[1][..., compared | apart].abs().max()
+        ratios = []
+        for mask, floor in ((compared, lim["J"]), (apart, apart_lim)):
+            Jk, Jp = out_k[1][..., mask], out_p[1][..., mask]
+            r = (Jk - Jp).abs().amax((0, 1)) / Jmax / torch.clamp(jlim[mask], min=floor)
+            ratios.append(float(r.max()) if r.numel() else 0.0)
+        eig_rec["J_err_over_limit_max"] = ratios[0]
+        eig_rec["J_err_over_limit_max_apart"] = ratios[1]
+        ok = ok and max(ratios) <= 1.0
+        ok = ok and all(errs[k][0] <= lim[k] for k in keys if k != "J")
+        ok = ok and all(apart_err[k][0] <= apart_lim for k in keys if k != "J")
+        ok = ok and int((nf_k | nf_p).sum()) <= EIG_NONFINITE_SHARE * E
+        ok = ok and (dn == "float32" or not bool((nf_k | nf_p).any()))
+    else:
+        ok = ok and all(errs[k][0] <= lim[k] and apart_err[k][0] <= apart_lim for k in keys)
     ok = ok and (not split or iters_agree >= lim["iters_agree"])
     ok = ok and max(fails) <= MAX_FAILED_SHARE * E
-    ok = ok and all(bool(torch.isfinite(t[..., converged]).all()) for t in out_k[:3])
+    if not eig:
+        ok = ok and all(bool(torch.isfinite(t[..., converged]).all()) for t in out_k[:3])
     ms = time_ms(lambda: implicit_assembly(disc, bm, x, xi_prev, P, x_prev=x_prev), 10)
     pms = time_ms(lambda: fused_assembly_plain(disc, bm, x, xi_prev, P, x_prev=x_prev), 1,
                   rounds=1)
@@ -928,9 +1139,13 @@ def check_implicit(label, prob, scale, results):
     flops = (sum(i * n for i, n in enumerate(hist)) * gauss_flops(nxi, 1)
              + E * (gauss_flops(nxi, ng) + 2 * nde * ng * nxi + 2 * nde * npe * d * d))
     b_ms, b_by = bound(nbytes, flops, dn)
-    rec = dict(kernel="implicit_assembly", case=label, dtype=dn,
+    worst = []
+    if eig:
+        worst = worst_elements(bm, out_k, out_p, x, x_prev, xi_prev, P, disc, iters, iters_p)
+    rec = dict(kernel=kname, case=label, dtype=dn,
                rel_err={k: v[0] for k, v in errs.items()},
                max_abs_err=max(e[1] for e in (*errs.values(), *apart_err.values())),
+               nonfinite=(int(nf_k.sum()), int(nf_p.sum())), **eig_rec, worst_J=worst,
                path_agree=agree, plastic=int(out_p[3].sum()), elements=E, fail_kernel_plain=fails,
                compared=int(compared.sum()), iters_agree=iters_agree,
                iters_apart=int(apart.sum()),
@@ -939,8 +1154,8 @@ def check_implicit(label, prob, scale, results):
                bound_by=b_by, limits=dict(lim, apart=apart_lim if split else None), ok=ok)
     log(json.dumps(rec))
     if not ok:
-        log(f"FAIL implicit_assembly {label} {dn}")
-    results[("implicit_assembly", label, dn)] = rec
+        log(f"FAIL {kname} {label} {dn}")
+    results[(kname, label, dn)] = rec
     return ok, out_k[1]
 
 
@@ -1000,8 +1215,8 @@ def check_operators_at(label, disc, J_T, bc_dofs, results):
 
 def IMPLICIT_CASES(meshes):
     """(label, deck, mesh, deformation scale) of the implicit kernel's
-    checks: the full-width decks of the Hill, hyper_J2 and hypo_hill
-    families."""
+    checks: the full-width decks of the Hill, hyper_J2, hypo_hill and
+    eigensolver families."""
     return (
         ("cube n=32 small_hill", hill_deck(32), meshes["cube32"], 0.02),
         ("notch2D h=0.004 small_hill_plane_stress", plane_stress_deck(0.004), meshes["notch004"],
@@ -1016,6 +1231,9 @@ def IMPLICIT_CASES(meshes):
          meshes["notch004"], 0.02),
         ("notch2D h=0.004 hypo_hill_plane_stress", hypo_plane_stress_deck(0.004),
          meshes["notch004"], 0.01),
+        ("cube n=32 small_hosford", eig_deck("small_hosford", 32), meshes["cube32"], 0.02),
+        ("cube n=32 hypo_hosford", eig_deck("hypo_hosford", 32), meshes["cube32"], 0.02),
+        ("cube n=32 hypo_barlat", eig_deck("hypo_barlat", 32), meshes["cube32"], 0.02),
     )
 
 
@@ -1130,6 +1348,7 @@ def phase_full_width(label, deck, mesh, operator, J_ref, needed):
 def full_width_runs(meshes):
     """(label, deck, mesh, operator, J reference, kernels the run must
     launch) of phase 4; the EBE run of the bench deck takes 1 load step."""
+    from calibr8_tpu_torch.mesh import generators
     from calibr8_tpu_torch.profile_primal import bench_deck
 
     ebe_deck = bench_deck(32)
@@ -1150,6 +1369,13 @@ def full_width_runs(meshes):
          ["implicit_assembly", "ell_spmv"]),
         ("cube n=32 hypo_hill mixed u/p, 2 steps", hypo_deck(32), meshes["cube32"], "auto",
          J_REF_HYPO_N32, ["implicit_assembly", "ell_spmv"]),
+        ("cube n=32 small_hosford mixed u/p, 2 steps", eig_deck("small_hosford", 32),
+         meshes["cube32"], "auto", J_REF_HOSFORD_N32, ["implicit_eig", "ell_spmv"]),
+        ("cube n=32 hypo_barlat mixed u/p, 2 steps", eig_deck("hypo_barlat", 32),
+         meshes["cube32"], "auto", J_REF_BARLAT_N32, ["implicit_barlat", "ell_spmv"]),
+        # 2,916 dofs: solved dense, so no Krylov operator
+        ("cube n=8 hypo_hosford mixed u/p, 2 steps", eig_deck("hypo_hosford", 8),
+         generators.cube(8), "auto", J_REF_HYPO_HOSFORD_N8, ["implicit_eig"]),
     ]
 
 
@@ -1208,9 +1434,16 @@ def fd_decks():
     # it is 7.6 (PERF.md has the runs)
     hypo["residuals"]["global residual"].update({"nonlinear absolute tol": 1e-12,
                                                  "nonlinear relative tol": 1e-12})
+    # the eigensolver twins are 3D: small_hosford's check runs on the cube
+    # n=3 eig_deck (dense), its Newton at 1e-12 as the hypo deck's
+    hosford = eig_deck("small_hosford", 3)
+    hosford["inverse"] = {"materials": {"body": FD_HOSFORD_ACTIVE}}
+    hosford["residuals"]["global residual"].update({"nonlinear absolute tol": 1e-12,
+                                                    "nonlinear relative tol": 1e-12})
     return {"notch2D h=0.12 small_J2, 8 steps": notch,
             "notch2D h=0.12 hyper_J2_plane_stress, 2 steps": hyper,
-            "notch2D h=0.12 hypo_hill_plane_stress (Q at 30 degrees), 2 steps": hypo}
+            "notch2D h=0.12 hypo_hill_plane_stress (Q at 30 degrees), 2 steps": hypo,
+            "cube n=3 small_hosford, 2 steps": hosford}
 
 
 def phase_adjoint_fd(label, deck):
@@ -1637,7 +1870,7 @@ def main(argv) -> int:
         if not ok:
             return 1
     for name, g_ref in (("bench", G_REF_N32), ("hill", G_REF_HILL_N32), ("hyper", G_REF_HYPER),
-                        ("hypo", G_REF_HYPO)):
+                        ("hypo", G_REF_HYPO), ("hosford", G_REF_HOSFORD)):
         ok, c = phase_adjoint_full_width(name, meshes["cube32"], g_ref)
         log(f"phase adjoint, full width, {name}: {'ok' if ok else 'FAILED'} "
             f"({time.perf_counter() - t_start:.0f} s)")
@@ -1654,6 +1887,8 @@ def main(argv) -> int:
     line = []
     timed = {"fused_assembly": ("fused_assembly", "float64"),
              "implicit_assembly": ("implicit_assembly", "cube n=32 hyper_J2", "float64"),
+             "implicit_eig": ("implicit_eig", "cube n=32 small_hosford", "float64"),
+             "implicit_barlat": ("implicit_barlat", "cube n=32 hypo_barlat", "float64"),
              "ebe_matvec": ("ebe_matvec", "float64"), "ell_spmv": ("ell_spmv", "float64"),
              "ell_spmv_T": ("ell_spmv_T", "cube n=32 small_J2", "float64"),
              "ell_spmv_level": ("ell_spmv_level", LEVEL_TIMED, "float64"),
@@ -1670,6 +1905,9 @@ def main(argv) -> int:
             # the hypo_hill family's figures at cube n=32 beside hyper_J2's
             h = results[("implicit_assembly", "cube n=32 hypo_hill", "float64")]
             entry["hypo_hill"] = {k: h[k] for k in keys}
+        if name == "implicit_eig":
+            h = results[("implicit_eig", "cube n=32 hypo_hosford", "float64")]
+            entry["hypo_hosford"] = {k: h[k] for k in keys}
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(nvidia_smi_line())

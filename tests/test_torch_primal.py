@@ -116,11 +116,8 @@ def test_state_from_numpy_round_trip():
 def _unsupported(key):
     deck = make_deck(CUBE, "small_J2", J2_MAT, BCS_3D(0.02), 1)
     if key == "model":
-        # small_hosford's parameters of tests/decks.py's notch_small_hosford
-        deck["residuals"]["local residual"]["type"] = "small_hosford"
-        deck["residuals"]["local residual"]["materials"] = {"body": dict(
-            PRIMAL_REGRESSIONS["notch_small_hosford"][0]["residuals"]["local residual"]["materials"]
-            ["body"])}
+        # a model outside the port (its materials are not read before the raise)
+        deck["residuals"]["local residual"]["type"] = "hybrid_hyper_J2_plane_stress"
     elif key == "multigrid":
         deck["linear algebra"] = {"preconditioner": "multigrid"}
     elif key == "amg":
@@ -161,5 +158,6 @@ def test_decks_outside_the_slice_fail_loudly(key):
 
 
 def test_unported_model_names_what_it_needs():
-    with pytest.raises(NotImplementedError, match="small_hosford.*eigensolver"):
+    with pytest.raises(NotImplementedError,
+                       match="hybrid_hyper_J2_plane_stress.*the embedded network"):
         Problem(load_deck(_unsupported("model")), device="cpu")
