@@ -13,7 +13,8 @@
 // against: sqrt' = g * (0.5 / sqrt(x)); exp' = g * exp(x); log' = g / x;
 // pow(x, n)' = g * (n x^(n-1)) for a constant float n; |x|' = g sign(x)
 // (0 at x == 0); cos' = -g sin(x); sin' = g cos(x); acos' = -g /
-// sqrt(1 - x^2); (a/b)' = a'/b - a b'/b^2; max0(f) = max(f, 0), maxc(f, c),
+// sqrt(1 - x^2); tanh' = g (1 - tanh(x)^2); log1p' = g / (1 + x);
+// (a/b)' = a'/b - a b'/b^2; max0(f) = max(f, 0), maxc(f, c),
 // minc(f, c) and c8_clip(f, lo, hi) give each side half the tangent at a
 // tie.
 #pragma once
@@ -267,6 +268,34 @@ C8_HD Dual<T, N> c8_acos(const Dual<T, N>& a) {
   const T jac = -c8_rsqrt(T(1) - a.v * a.v);
 #pragma unroll
   for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * jac;
+  return r;
+}
+
+C8_HD float c8_tanh(float x) { return tanhf(x); }
+C8_HD double c8_tanh(double x) { return tanh(x); }
+
+// tanh' = g * (1 - tanh(x)^2), PyTorch's tanh_backward at the result
+template <typename T, int N>
+C8_HD Dual<T, N> c8_tanh(const Dual<T, N>& a) {
+  Dual<T, N> r;
+  r.v = c8_tanh(a.v);
+  const T jac = T(1) - r.v * r.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] * jac;
+  return r;
+}
+
+C8_HD float c8_log1p(float x) { return log1pf(x); }
+C8_HD double c8_log1p(double x) { return log1p(x); }
+
+// log1p' = g / (1 + x)
+template <typename T, int N>
+C8_HD Dual<T, N> c8_log1p(const Dual<T, N>& a) {
+  Dual<T, N> r;
+  r.v = c8_log1p(a.v);
+  const T den = T(1) + a.v;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = a.d[k] / den;
   return r;
 }
 

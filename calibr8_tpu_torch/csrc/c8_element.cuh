@@ -1,6 +1,7 @@
-// Per-element assembly of the mixed u/p mechanics residual and its
-// statically condensed Jacobian, for the models of the analytic kernel
-// mode (elastic, small_J2).  One call handles one element; the fused
+// Per-element assembly of the mechanics residual and its statically
+// condensed Jacobian, for the models of the analytic kernel mode: mixed
+// u/p rows for elastic and small_J2, displacement-only rows for
+// isotropic_elastic (M::MIXED).  One call handles one element; the fused
 // assembly kernel (fused_assembly.cu) runs it in one thread per element.
 //
 // The arithmetic follows calibr8_tpu's fused Pallas kernel
@@ -19,6 +20,7 @@
 //   detJ, h  (E,)
 //   params   (n_sets, npar) with es_ids (E,) int32
 //   R_T (nde, E), J_T (nde, nde, E), xi_T (nxi, E), path/fail (E,) int32
+// with nde = npe (d + 1) for mixed u/p, npe d for displacement only.
 #pragma once
 
 #include "c8_dual.cuh"
@@ -102,8 +104,9 @@ C8_HD S norm_eps(const S a[D][D]) {
 }
 
 // -- models -------------------------------------------------------------
-// Each model: NXI local variables, NPAR parameters (deck order),
-// local_solve (closed form), dev_cauchy, hydro, psf.
+// Each model: NXI local variables, NPAR parameters (deck order), MIXED
+// (its rows), local_solve (closed form); a mixed one dev_cauchy, hydro and
+// psf, a displacement-only one the full stress, cauchy.
 
 // elastic (models/batched.py:257-302): xi = [dummy] = 0,
 // params [E, nu, cte, delta_T]
@@ -111,6 +114,7 @@ template <typename T, int D>
 struct Elastic {
   static constexpr int NXI = 1;
   static constexpr int NPAR = 4;
+  static constexpr bool MIXED = true;
 
   template <typename S>
   C8_HD static void local_solve(const T* xip, const S gu[D][D], const T* par,
@@ -148,6 +152,7 @@ struct SmallJ2 {
   static constexpr int NC = (D == 2) ? 3 : 6;
   static constexpr int NXI = NC + 1;
   static constexpr int NPAR = 6;
+  static constexpr bool MIXED = true;
 
   template <typename S>
   C8_HD static void local_solve(const T* xip, const S gu[D][D], const T* par,
@@ -201,6 +206,45 @@ struct SmallJ2 {
   C8_HD static T psf(const T* par) { return par[0] / (T(3) * (T(1) - T(2) * par[1])); }
 };
 
+// isotropic_elastic (models/batched.py:2014-2072), displacement only:
+// xi = [dummy] = 0, params [E, nu]; sigma = lambda tr(eps) I + 2 mu eps
+template <typename T, int D>
+struct IsotropicElastic {
+  static constexpr int NXI = 1;
+  static constexpr int NPAR = 2;
+  static constexpr bool MIXED = false;
+
+  template <typename S>
+  C8_HD static void local_solve(const T* xip, const S gu[D][D], const T* par,
+                                T abs_tol, S* xi, int& path) {
+    xi[0] = S(T(0));
+    path = 0;
+  }
+
+  template <typename S>
+  C8_HD static void cauchy(const S* xi, const S gu[D][D], const T* par, S out[D][D]) {
+    const T Em = par[0], nu = par[1];
+    const T lam = Em * nu / ((T(1) + nu) * (T(1) - T(2) * nu));
+    const T mu = Em / (T(2) * (T(1) + nu));
+    S eps[D][D];
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < D; ++j) eps[i][j] = (gu[i][j] + gu[j][i]) * 0.5;
+    S tr = eps[0][0];
+#pragma unroll
+    for (int i = 1; i < D; ++i) tr = tr + eps[i][i];
+    const S ltr = lam * tr;
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        out[i][j] = (T(2) * mu) * eps[i][j];
+        if (i == j) out[i][j] = out[i][j] + ltr;
+      }
+  }
+};
+
 // -- the element --------------------------------------------------------
 
 template <typename T, int D, template <typename, int> class Model>
@@ -209,21 +253,22 @@ C8_HD void assemble_element(
     const T* __restrict__ xi_prev, const T* __restrict__ gN_T,
     const T* __restrict__ detJ, const T* __restrict__ h,
     const T* __restrict__ params, const int* __restrict__ es_ids,
-    const Quad<T>& q, T meas0, T stab_half, T abs_tol,
+    const Quad<T>& q, T meas0, T stab_half, T abs_tol, T thick,
     T* __restrict__ R_T, T* __restrict__ J_T, T* __restrict__ xi_T,
     int* __restrict__ path_out, int* __restrict__ fail_out) {
-  constexpr int NPE = D + 1, NDPN = D + 1, NDE = NPE * NDPN, NG = D * D;
   typedef Model<T, D> M;
+  constexpr bool MIXED = M::MIXED;
+  constexpr int NPE = D + 1, NDPN = MIXED ? D + 1 : D, NDE = NPE * NDPN, NG = D * D;
   typedef Dual<T, NG> S;
   constexpr int NXI = M::NXI, NPAR = M::NPAR;
 
-  // ---- gather ----
+  // ---- gather (no pressure when displacement only) ----
   T u[NPE][D], p[NPE], gN[NPE][D];
 #pragma unroll
   for (int n = 0; n < NPE; ++n) {
 #pragma unroll
     for (int c = 0; c < D; ++c) u[n][c] = x[edofs_T[(n * NDPN + c) * E + e]];
-    p[n] = x[edofs_T[(n * NDPN + D) * E + e]];
+    if constexpr (MIXED) p[n] = x[edofs_T[(n * NDPN + D) * E + e]];
 #pragma unroll
     for (int j = 0; j < D; ++j) gN[n][j] = gN_T[(n * D + j) * E + e];
   }
@@ -249,29 +294,30 @@ C8_HD void assemble_element(
     }
 
   // ---- state-independent pressure data (frozen under the seeds) ----
-  const T mu = par[0] / (T(2) * (T(1) + par[1]));
   const T wdv0 = dJ * meas0;
-  const T psf = M::psf(par);
-  const T tau = stab_half * hh * hh / mu;
   const T inv_npe = T(1.0 / NPE);
-  T p_ip = p[0];
+  T psf = T(1), tau = T(0), p_ip = T(0), grad_p[D], coef[4];
+  if constexpr (MIXED) {
+    const T mu = par[0] / (T(2) * (T(1) + par[1]));
+    psf = M::psf(par);
+    tau = stab_half * hh * hh / mu;
+    p_ip = p[0];
 #pragma unroll
-  for (int n = 1; n < NPE; ++n) p_ip = p_ip + p[n];
-  p_ip = p_ip * inv_npe;
-  T grad_p[D];
+    for (int n = 1; n < NPE; ++n) p_ip = p_ip + p[n];
+    p_ip = p_ip * inv_npe;
 #pragma unroll
-  for (int j = 0; j < D; ++j) {
-    T acc = p[0] * gN[0][j];
+    for (int j = 0; j < D; ++j) {
+      T acc = p[0] * gN[0][j];
 #pragma unroll
-    for (int n = 1; n < NPE; ++n) acc = acc + p[n] * gN[n][j];
-    grad_p[j] = acc;
-  }
-  T coef[4];
-  for (int qq = 0; qq < q.npts; ++qq) {
-    T pq = q.N1[qq][0] * p[0];
+      for (int n = 1; n < NPE; ++n) acc = acc + p[n] * gN[n][j];
+      grad_p[j] = acc;
+    }
+    for (int qq = 0; qq < q.npts; ++qq) {
+      T pq = q.N1[qq][0] * p[0];
 #pragma unroll
-    for (int n = 1; n < NPE; ++n) pq = pq + q.N1[qq][n] * p[n];
-    coef[qq] = (pq / psf) * (q.w1[qq] * dJ);
+      for (int n = 1; n < NPE; ++n) pq = pq + q.N1[qq][n] * p[n];
+      coef[qq] = (pq / psf) * (q.w1[qq] * dJ);
+    }
   }
 
   // ---- local solve and stress, differentiated along the d*d seeds ----
@@ -279,23 +325,31 @@ C8_HD void assemble_element(
   int path = 0;
   M::local_solve(xip, gu, par, abs_tol, xi, path);
   S sigma[D][D];
-  M::dev_cauchy(xi, gu, par, sigma);
+  S rp_const(T(0));
+  if constexpr (MIXED) {
+    M::dev_cauchy(xi, gu, par, sigma);
 #pragma unroll
-  for (int i = 0; i < D; ++i) sigma[i][i] = sigma[i][i] - p_ip;
-  const S rp_const = (-(M::hydro(xi, gu, par) / psf) * inv_npe) * wdv0;
+    for (int i = 0; i < D; ++i) sigma[i][i] = sigma[i][i] - p_ip;
+    rp_const = (-(M::hydro(xi, gu, par) / psf) * inv_npe) * wdv0;
+  } else {
+    M::cauchy(xi, gu, par, sigma);
+  }
 
-  // ---- rows of each node: R, and J = (gu tangents) . grad_N plus the
-  //      analytic pressure columns (fem/pallas_assembly.py:423-476) ----
+  // ---- rows of each node: R, and J = (gu tangents) . grad_N, plus the
+  //      analytic pressure columns when mixed (fem/pallas_assembly.py:
+  //      423-476); displacement only, the momentum rows times `thick`
+  //      (the thickness under plane stress, 1 otherwise) ----
 #pragma unroll
   for (int n = 0; n < NPE; ++n) {
 #pragma unroll
-    for (int ci = 0; ci <= D; ++ci) {
+    for (int ci = 0; ci < NDPN; ++ci) {
       S row;
       if (ci < D) {
         S acc = sigma[ci][0] * gN[n][0];
 #pragma unroll
         for (int j = 1; j < D; ++j) acc = acc + sigma[ci][j] * gN[n][j];
-        row = acc * wdv0;
+        if constexpr (MIXED) row = acc * wdv0;
+        else row = (acc * wdv0) * thick;
       } else {
         T stab_n = (tau * grad_p[0]) * gN[n][0];
 #pragma unroll
@@ -316,16 +370,18 @@ C8_HD void assemble_element(
           for (int j = 1; j < D; ++j) acc = acc + row.d[c * D + j] * gN[m][j];
           Jrow[(size_t)(m * NDPN + c) * E] = acc;
         }
-        T pcol;
-        if (ci < D) {
-          pcol = (-inv_npe * gN[n][ci]) * wdv0;
-        } else {
-          T gg = gN[m][0] * gN[n][0];
+        if constexpr (MIXED) {
+          T pcol;
+          if (ci < D) {
+            pcol = (-inv_npe * gN[n][ci]) * wdv0;
+          } else {
+            T gg = gN[m][0] * gN[n][0];
 #pragma unroll
-          for (int j = 1; j < D; ++j) gg = gg + gN[m][j] * gN[n][j];
-          pcol = (-tau * wdv0) * gg - (dJ / psf) * q.mass[n][m];
+            for (int j = 1; j < D; ++j) gg = gg + gN[m][j] * gN[n][j];
+            pcol = (-tau * wdv0) * gg - (dJ / psf) * q.mass[n][m];
+          }
+          Jrow[(size_t)(m * NDPN + D) * E] = pcol;
         }
-        Jrow[(size_t)(m * NDPN + D) * E] = pcol;
       }
     }
   }

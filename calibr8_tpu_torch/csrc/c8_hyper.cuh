@@ -464,7 +464,9 @@ struct HyperJ2PlaneStress {
       }
   }
 
-  template <typename S>
+  // Self names the struct whose sigma_yield the rows take (the hybrid of
+  // c8_hybrid.cuh passes itself)
+  template <typename S, typename Self = HyperJ2PlaneStress>
   C8_HD static int residual(const S* xi, const T* xip, const S gu[2][2], const T gup[2][2],
                             const T* par, T abs_tol, S* C) {
     const T mu = shear_modulus(par);
@@ -473,7 +475,7 @@ struct HyperJ2PlaneStress {
     S be3[3][3], zt[2][2], Ie_tr;
     be_bar_3d(xip, gu, gup, lam_z, be3);
     trial_state(be3, zt, Ie_tr);
-    const int path = hyper2d_rows<HyperJ2PlaneStress>(xi, xip, zt, Ie_tr, par, abs_tol, C);
+    const int path = hyper2d_rows<Self>(xi, xip, zt, Ie_tr, par, abs_tol, C);
     // the plane-stress constraint on the out-of-plane stretch
     const S zeta_zz = -(xi[0] + xi[1]);
     S F[2][2];

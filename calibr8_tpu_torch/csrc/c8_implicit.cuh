@@ -4,7 +4,11 @@
 // One call handles one element; implicit_assembly_kernel below runs it in
 // one thread per element (launched from implicit_assembly.cu for the
 // small-strain twins of c8_hill.cuh and the finite-deformation twins of
-// c8_hyper.cuh and c8_hypo.cuh).
+// c8_hyper.cuh and c8_hypo.cuh; from implicit_eig.cu, implicit_barlat.cu
+// and implicit_hybrid.cu for those of c8_hosford.cuh and c8_hybrid.cuh).
+// A model's parameters are copied into registers (NPAR of them), or, for
+// a model with RUNTIME_PAR (the hybrid, whose network the deck sizes),
+// read in place from its element set's row in global memory.
 //
 // The arithmetic follows calibr8_tpu's fused Pallas kernel in its
 // implicit mode (fem/pallas_assembly.py:242-482) and its local Newton
@@ -79,6 +83,16 @@ template <typename M, typename S>
 struct pre_of<M, S, true> {
   typedef typename M::template Pre<S> type;
 };
+
+// whether model M reads its parameters at run time (M::RUNTIME_PAR: the
+// hybrid's network weights, whose count the deck sets): its element set's
+// row is read in place, of stride M::par_stride(), and not copied into
+// registers
+template <typename M, typename = void>
+struct has_runtime_par : std::false_type {};
+template <typename M>
+struct has_runtime_par<M, std::void_t<decltype(M::RUNTIME_PAR)>>
+    : std::integral_constant<bool, M::RUNTIME_PAR> {};
 
 // whether model M freezes its branch at the first guess (M::FREEZE_PATH)
 template <typename M, typename = void>
@@ -156,10 +170,15 @@ C8_HD void implicit_element(
     for (int j = 0; j < D; ++j) gN[n][j] = gN_T[(n * D + j) * E + e];
   }
   const T dJ = detJ[e], hh = h[e];
-  T par[NPAR], xip[NXI];
-  const T* pe = params + es_ids[e] * NPAR;
+  T par_reg[NPAR], xip[NXI];
+  const T* par = par_reg;
+  if constexpr (has_runtime_par<M>::value) {
+    par = params + es_ids[e] * M::par_stride();
+  } else {
+    const T* pe = params + es_ids[e] * NPAR;
 #pragma unroll
-  for (int k = 0; k < NPAR; ++k) par[k] = pe[k];
+    for (int k = 0; k < NPAR; ++k) par_reg[k] = pe[k];
+  }
 #pragma unroll
   for (int k = 0; k < NXI; ++k) xip[k] = xi_prev[e * NXI + k];
 

@@ -3,10 +3,14 @@
 // Replaces calibr8_tpu's Pallas kernel make_pallas_assemble
 // (fem/pallas_assembly.py:157, pallas_call at :496) in its analytic
 // mode: for each element, the grad_u kinematics, the closed-form local
-// solve, the residual rows of the mixed u/p mechanics residual with GLS
-// stabilization, and the element Jacobian as the d*d grad_u tangents of
-// the rows (carried by dual numbers, c8_dual.cuh) contracted with the
-// shape-function gradients, plus the analytic pressure columns.
+// solve, the residual rows, and the element Jacobian as the d*d grad_u
+// tangents of the rows (carried by dual numbers, c8_dual.cuh) contracted
+// with the shape-function gradients.  elastic and small_J2 take the rows
+// of the mixed u/p mechanics residual with GLS stabilization and the
+// analytic pressure columns; isotropic_elastic the displacement-only
+// momentum rows (:299-314, :402-421), times the thickness under plane
+// stress only, as calibr8_tpu's generic path does (its Pallas kernel
+// multiplies by it always, :313; the two agree at thickness 1).
 //
 // What bounds it on an H100: the stores.  J_T alone is nde^2 words per
 // element (16*16*8 = 2 KB in 3D float64) against ~0.3 KB of inputs and a
@@ -19,7 +23,8 @@
 // One thread per element keeps the whole element in registers (ptxas:
 // 254 a thread and no spills for the 3D float64 small_J2 instance, so
 // occupancy is low); tensor cores, shared-memory staging and TMA are
-// later work.
+// later work.  The displacement-only instance moves 12^2 words of J per
+// 3D element, not 16^2, and carries no pressure data.
 //
 // C interface, bound with ctypes (calibr8_tpu_torch/fem/fused_assembly.py).
 
@@ -35,13 +40,13 @@ __global__ void __launch_bounds__(128) fused_assembly_kernel(
     const T* __restrict__ xi_prev, const T* __restrict__ gN_T,
     const T* __restrict__ detJ, const T* __restrict__ h,
     const T* __restrict__ params, const int* __restrict__ es_ids,
-    const c8::Quad<T> q, T meas0, T stab_half, T abs_tol,
+    const c8::Quad<T> q, T meas0, T stab_half, T abs_tol, T thick,
     T* __restrict__ R_T, T* __restrict__ J_T, T* __restrict__ xi_T,
     int* __restrict__ path, int* __restrict__ fail) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= E) return;
   c8::assemble_element<T, D, Model>(e, E, x, edofs_T, xi_prev, gN_T, detJ, h,
-                                    params, es_ids, q, meas0, stab_half, abs_tol,
+                                    params, es_ids, q, meas0, stab_half, abs_tol, thick,
                                     R_T, J_T, xi_T, path, fail);
 }
 
@@ -49,8 +54,8 @@ template <typename T, int D, template <typename, int> class Model>
 int launch(int E, const void* x, const void* edofs_T, const void* xi_prev,
            const void* gN_T, const void* detJ, const void* h, const void* params,
            const void* es_ids, const double* quad, int npts, double stab_half,
-           double abs_tol, void* R_T, void* J_T, void* xi_T, void* path, void* fail,
-           cudaStream_t stream) {
+           double abs_tol, double thick, void* R_T, void* J_T, void* xi_T, void* path,
+           void* fail, cudaStream_t stream) {
   constexpr int NPE = D + 1;
   c8::Quad<T> q;
   for (int a = 0; a < 4; ++a) {
@@ -71,8 +76,8 @@ int launch(int E, const void* x, const void* edofs_T, const void* xi_prev,
     fused_assembly_kernel<T, D, Model><<<grid, block, 0, stream>>>(
         E, (const T*)x, (const int*)edofs_T, (const T*)xi_prev, (const T*)gN_T,
         (const T*)detJ, (const T*)h, (const T*)params, (const int*)es_ids, q,
-        meas0, T(stab_half), T(abs_tol), (T*)R_T, (T*)J_T, (T*)xi_T, (int*)path,
-        (int*)fail);
+        meas0, T(stab_half), T(abs_tol), T(thick), (T*)R_T, (T*)J_T, (T*)xi_T,
+        (int*)path, (int*)fail);
   return (int)cudaGetLastError();
 }
 
@@ -80,14 +85,16 @@ template <typename T>
 int dispatch(int model, int dim, int E, const void* x, const void* edofs_T,
              const void* xi_prev, const void* gN_T, const void* detJ, const void* h,
              const void* params, const void* es_ids, const double* quad, int npts,
-             double stab_half, double abs_tol, void* R_T, void* J_T, void* xi_T,
-             void* path, void* fail, cudaStream_t s) {
+             double stab_half, double abs_tol, double thick, void* R_T, void* J_T,
+             void* xi_T, void* path, void* fail, cudaStream_t s) {
 #define C8_ARGS E, x, edofs_T, xi_prev, gN_T, detJ, h, params, es_ids, quad, npts, \
-                stab_half, abs_tol, R_T, J_T, xi_T, path, fail, s
+                stab_half, abs_tol, thick, R_T, J_T, xi_T, path, fail, s
   if (model == 0 && dim == 2) return launch<T, 2, c8::Elastic>(C8_ARGS);
   if (model == 0 && dim == 3) return launch<T, 3, c8::Elastic>(C8_ARGS);
   if (model == 1 && dim == 2) return launch<T, 2, c8::SmallJ2>(C8_ARGS);
   if (model == 1 && dim == 3) return launch<T, 3, c8::SmallJ2>(C8_ARGS);
+  if (model == 2 && dim == 2) return launch<T, 2, c8::IsotropicElastic>(C8_ARGS);
+  if (model == 2 && dim == 3) return launch<T, 3, c8::IsotropicElastic>(C8_ARGS);
 #undef C8_ARGS
   return (int)cudaErrorInvalidValue;
 }
@@ -98,13 +105,14 @@ extern "C" {
 
 // device: the CUDA ordinal of the tensors (this library's runtime keeps
 // its own current device); dtype: 0 float32, 1 float64; model: 0
-// elastic, 1 small_J2; dim: 2 or 3.  Returns the cudaError_t of the
-// launch (0 on success).
+// elastic, 1 small_J2 (mixed u/p), 2 isotropic_elastic (displacement
+// only); dim: 2 or 3; thick: the displacement-only rows' factor.  Returns
+// the cudaError_t of the launch (0 on success).
 int c8_fused_assembly(int device, int dtype, int model, int dim, int E, const void* x,
                       const void* edofs_T, const void* xi_prev, const void* gN_T,
                       const void* detJ, const void* h, const void* params,
                       const void* es_ids, const double* quad, int npts,
-                      double stab_half, double abs_tol, void* R_T, void* J_T,
+                      double stab_half, double abs_tol, double thick, void* R_T, void* J_T,
                       void* xi_T, void* path, void* fail, void* stream) {
   if (npts < 1 || npts > 4) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -112,12 +120,12 @@ int c8_fused_assembly(int device, int dtype, int model, int dim, int E, const vo
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return dispatch<float>(model, dim, E, x, edofs_T, xi_prev, gN_T, detJ, h, params,
-                           es_ids, quad, npts, stab_half, abs_tol, R_T, J_T, xi_T, path,
-                           fail, s);
+                           es_ids, quad, npts, stab_half, abs_tol, thick, R_T, J_T, xi_T,
+                           path, fail, s);
   if (dtype == 1)
     return dispatch<double>(model, dim, E, x, edofs_T, xi_prev, gN_T, detJ, h, params,
-                            es_ids, quad, npts, stab_half, abs_tol, R_T, J_T, xi_T, path,
-                            fail, s);
+                            es_ids, quad, npts, stab_half, abs_tol, thick, R_T, J_T, xi_T,
+                            path, fail, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -8,14 +8,14 @@ the statically condensed element Jacobian
 dR/dx - dR/dxi (dC/dxi)^-1 dC/dx (reference evaluations.cpp:112).  The
 twin decides the mode:
 
-  analytic (elastic, small_J2)   closed-form local solve, so the d*d
-                                 grad_u tangents of the rows through it
+  analytic (elastic, small_J2,   closed-form local solve, so the d*d
+  isotropic_elastic)             grad_u tangents of the rows through it
                                  ARE the condensed Jacobian
                                  (pallas_assembly.py:343-362); kernel
                                  csrc/fused_assembly.cu
-  implicit (the Hill, hyper_J2,   a local Newton per element, then the
+  implicit (the Hill, hyper_J2,  a local Newton per element, then the
   hypo_hill and eigensolver      tangents of H(v) = [C; S_rows] over the
-  families)                      nxi + d*d seeds of v = [xi; grad_u] and
+  families, the hybrid)          nxi + d*d seeds of v = [xi; grad_u] and
                                  dxi/dgu = -(dC/dxi)^-1 dC/dgu at the
                                  Newton's path (the frozen one for the
                                  eigensolver twins;
@@ -23,12 +23,18 @@ twin decides the mode:
                                  csrc/implicit_assembly.cu, or
                                  csrc/implicit_eig.cu for small_hosford
                                  and hypo_hosford, implicit_barlat.cu
-                                 for hypo_barlat
+                                 for hypo_barlat, implicit_hybrid.cu for
+                                 the hybrid with its embedded network
 
 The spec decides the rows: mixed u/p with GLS stabilization, whose
 pressure columns are added analytically (pallas_assembly.py:423-476),
-or displacement only, the momentum rows times the thickness
-('mechanics_plane_stress', pallas_assembly.py:299-314,402-421).  A twin
+or displacement only (isotropic_elastic, and the plane-stress twins
+under 'mechanics_plane_stress'), the momentum rows alone
+(pallas_assembly.py:299-314,402-421), times the thickness under plane
+stress only: calibr8_tpu's Pallas kernel multiplies every non-mixed row
+by it (:313), its generic path and the reference's mechanics under plane
+stress alone (mechanics/global_residual.py:145-163), and the port follows
+the generic path.  A twin
 with finite_deformation has PK1 momentum rows sigma cof(F) (times the
 z-stretch when displacement only), the stabilization (tau / det F)
 cof^T cof grad_p, and pressure columns through cof(F) and cof^T cof /
@@ -62,6 +68,7 @@ from calibr8_tpu_torch.mechanics.global_residual import (
 from calibr8_tpu_torch.models.batched import (
     KERNEL_MODEL_ID, get_batched_model, jvp_columns, t_cof, t_det, t_F, t_mm, t_transpose,
 )
+from calibr8_tpu_torch.models.nn import ACTIVATION_CODE
 from calibr8_tpu_torch.utils.smallsolve import gauss_solve_T
 
 
@@ -72,6 +79,9 @@ def check_supported(bmodel, spec) -> None:
     XLA path, which the port does not have."""
     if bmodel.plane_stress:
         ok, want = spec.plane_stress and not spec.mixed, "'mechanics_plane_stress'"
+    elif getattr(bmodel, "displacement_only", False):
+        ok, want = not spec.mixed, ("a displacement-only residual ('mixed formulation: false' "
+                                    "or 'mechanics_plane_stress')")
     else:
         ok, want = spec.mixed and not spec.plane_stress, "the mixed u/p 'mechanics' residual"
     if not ok:
@@ -125,24 +135,31 @@ def _outputs(disc, bmodel):
 _ARGTYPES = (
     [ctypes.c_int] * 5
     + [ctypes.c_void_p] * 8
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_double]
+    + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_double] * 3
     + [ctypes.c_void_p] * 6
 )
+
+
+def row_thickness(spec) -> float:
+    """The factor of the displacement-only rows: the thickness under plane
+    stress, 1 otherwise (calibr8_tpu's generic path)."""
+    return float(spec.thickness) if spec.plane_stress else 1.0
 
 
 def fused_assembly(disc, bmodel, x, xi_prev, params_all, x_prev=None):
     """(R_T, J_T, xi_T, path, fail) for every element of `disc`.
 
     On CUDA tensors this launches the twin's kernel (or raises): the
-    analytic kernel here, the implicit ones through implicit_assembly.
-    On CPU tensors it runs the plain version."""
+    analytic kernel here (mixed u/p rows for elastic and small_J2, the
+    displacement-only rows for isotropic_elastic), the implicit ones
+    through implicit_assembly.  On CPU tensors it runs the plain version."""
     if not x.is_cuda:
         return fused_assembly_plain(disc, bmodel, x, xi_prev, params_all, x_prev=x_prev)
     if not bmodel.analytic_solve:
         return implicit_assembly(disc, bmodel, x, xi_prev, params_all, x_prev=x_prev)
     _check_inputs(disc, bmodel, x, xi_prev, params_all)
     spec = disc.spec
-    kernels.require(spec.mixed, "the analytic kernel takes mixed u/p specs only")
+    check_supported(bmodel, spec)
     R_T, J_T, xi_T, path, fail = _outputs(disc, bmodel)
     quad, npts = _quad_array(spec.dim)
     fn = kernels.function("fused_assembly", "c8_fused_assembly", _ARGTYPES)
@@ -152,7 +169,7 @@ def fused_assembly(disc, bmodel, x, xi_prev, params_all, x_prev=None):
         disc.gN_T.data_ptr(), disc.detJ.data_ptr(), disc.h.data_ptr(),
         params_all.data_ptr(), disc.es_ids32.data_ptr(),
         ctypes.cast(quad, ctypes.c_void_p), npts,
-        float(spec.stab_multiplier) * 0.5, float(bmodel.abs_tol),
+        float(spec.stab_multiplier) * 0.5, float(bmodel.abs_tol), row_thickness(spec),
         R_T.data_ptr(), J_T.data_ptr(), xi_T.data_ptr(), path.data_ptr(),
         fail.data_ptr(), kernels.stream_ptr(disc.device),
     )
@@ -169,22 +186,51 @@ _IMPLICIT_ARGTYPES = (
 )
 
 
-# the eigensolver twins' kernels: libraries of their own (csrc/implicit_eig.cu,
-# csrc/implicit_barlat.cu), each with its launch count; the other implicit
-# twins' is implicit_assembly
+# the eigensolver twins' and the hybrid's kernels: libraries of their own
+# (csrc/implicit_eig.cu, csrc/implicit_barlat.cu, csrc/implicit_hybrid.cu),
+# each with its launch count; the other implicit twins' is implicit_assembly
 IMPLICIT_LIB = {"small_hosford": ("implicit_eig", "c8_implicit_eig_assembly"),
                 "hypo_hosford": ("implicit_eig", "c8_implicit_eig_assembly"),
-                "hypo_barlat": ("implicit_barlat", "c8_implicit_barlat_assembly")}
+                "hypo_barlat": ("implicit_barlat", "c8_implicit_barlat_assembly"),
+                "hybrid_hyper_J2_plane_stress": ("implicit_hybrid",
+                                                 "c8_implicit_hybrid_assembly")}
+
+# the network the hybrid's kernel takes (csrc/c8_hybrid.cuh NN_MAX_WIDTH,
+# NN_MAX_HIDDEN): scalar in, at most 4 hidden layers of at most 16 units
+NN_MAX_WIDTH = 16
+NN_MAX_HIDDEN = 4
+# the network's description after the common arguments: activation code,
+# number of weight layers, the widths (the topology), in and out scales,
+# the parameter row's stride
+_HYBRID_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_double,
+                    ctypes.c_double, ctypes.c_int]
+
+
+def hybrid_net_args(bmodel, params_all):
+    """The hybrid kernel's network arguments; NotImplementedError above the
+    kernel's cap (the plain version has none)."""
+    topo = bmodel.nn.topology
+    hidden = topo[1:-1]
+    if topo[0] != 1 or len(hidden) > NN_MAX_HIDDEN or max(hidden) > NN_MAX_WIDTH:
+        raise NotImplementedError(
+            f"the hybrid's kernel takes a scalar-input network of at most {NN_MAX_HIDDEN} "
+            f"hidden layers of at most {NN_MAX_WIDTH} units; topology {topo} is above that cap "
+            "(the plain version, on the CPU, takes any)"
+        )
+    return (ACTIVATION_CODE[bmodel.nn.activation], len(topo) - 1,
+            (ctypes.c_int * len(topo))(*topo), float(bmodel.in_scale),
+            float(bmodel.out_scale), params_all.shape[1])
 
 
 def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None, x_prev=None):
     """The implicit-mode kernel for an implicit twin on CUDA tensors:
     (R_T, J_T, xi_T, path, fail), from csrc/implicit_assembly.cu, or, for
-    the eigensolver twins, csrc/implicit_eig.cu and implicit_barlat.cu; the
-    finite-deformation twins read x_prev.  With `newton_iters` an
-    int32 (E,) CUDA tensor, the kernel also writes each element's local
-    Newton iteration count there.  On CPU tensors it runs the plain
-    version."""
+    the eigensolver twins, csrc/implicit_eig.cu and implicit_barlat.cu, for
+    the hybrid implicit_hybrid.cu (its network above the kernel's cap
+    raises NotImplementedError); the finite-deformation twins read x_prev.
+    With `newton_iters` an int32 (E,) CUDA tensor, the kernel also writes
+    each element's local Newton iteration count there.  On CPU tensors it
+    runs the plain version."""
     if not x.is_cuda:
         return fused_assembly_plain(disc, bmodel, x, xi_prev, params_all, x_prev=x_prev,
                                     newton_iters=newton_iters)
@@ -200,10 +246,14 @@ def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None, x
         req(newton_iters.shape == (E,) and newton_iters.dtype == torch.int32
             and newton_iters.device == disc.device and newton_iters.is_contiguous(),
             "newton_iters must be a contiguous (E,) int32 tensor on the Disc's device")
+    lib, symbol = IMPLICIT_LIB.get(bmodel.name, ("implicit_assembly", "c8_implicit_assembly"))
+    net, argtypes = (), _IMPLICIT_ARGTYPES
+    if lib == "implicit_hybrid":
+        net = hybrid_net_args(bmodel, params_all)
+        argtypes = _IMPLICIT_ARGTYPES + _HYBRID_ARGTYPES
     R_T, J_T, xi_T, path, fail = _outputs(disc, bmodel)
     quad, npts = _quad_array(spec.dim)
-    lib, symbol = IMPLICIT_LIB.get(bmodel.name, ("implicit_assembly", "c8_implicit_assembly"))
-    fn = kernels.function(lib, symbol, _IMPLICIT_ARGTYPES)
+    fn = kernels.function(lib, symbol, argtypes)
     err = fn(
         x.device.index, kernels.dtype_code(disc.dtype), KERNEL_MODEL_ID[bmodel.name], E,
         x.data_ptr(), (x if x_prev is None else x_prev).data_ptr(), disc.edofs_T.data_ptr(),
@@ -215,7 +265,7 @@ def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None, x
         max(bmodel.abs_tol * 10.0, 1e-30),
         R_T.data_ptr(), J_T.data_ptr(), xi_T.data_ptr(), path.data_ptr(), fail.data_ptr(),
         None if newton_iters is None else newton_iters.data_ptr(),
-        kernels.stream_ptr(disc.device),
+        kernels.stream_ptr(disc.device), *net,
     )
     kernels.check(lib, err)
     kernels.launches[lib] += 1

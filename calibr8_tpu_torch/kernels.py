@@ -13,10 +13,11 @@ it launches, and nowhere else; `reset_launches()` sets the counts to 0.
 A counter is named after its kernel's source, except `ell_spmv_level`:
 the multigrid level apply (calibr8_tpu's kernel 3c, LevelEllOperator)
 launches the kernels of `ell_spmv.cu` on level shapes and counts apart.
-Kernel 1b, the implicit assembly, is three sources: `implicit_assembly.cu`
+Kernel 1b, the implicit assembly, is four sources: `implicit_assembly.cu`
 (the Hill, hyper_J2 and hypo_hill families), `implicit_eig.cu` (the
-Hosford twins) and `implicit_barlat.cu` (hypo_barlat), so that they build
-in parallel.
+Hosford twins), `implicit_barlat.cu` (hypo_barlat) and
+`implicit_hybrid.cu` (the hybrid with its embedded network), so that they
+build in parallel.
 `probe` (kernel 4, probe.py) lies on no solver path.
 """
 
@@ -34,10 +35,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("fused_assembly", "implicit_assembly", "implicit_eig", "implicit_barlat", "ebe_matvec",
-           "ell_spmv", "ell_spmv_T", "probe")
+KERNELS = ("fused_assembly", "implicit_assembly", "implicit_eig", "implicit_barlat",
+           "implicit_hybrid", "ebe_matvec", "ell_spmv", "ell_spmv_T", "probe")
 HEADERS = ("c8_dual.cuh", "c8_element.cuh", "c8_hill.cuh", "c8_hyper.cuh", "c8_hypo.cuh",
-           "c8_implicit.cuh", "c8_eig.cuh", "c8_hosford.cuh")
+           "c8_implicit.cuh", "c8_eig.cuh", "c8_hosford.cuh", "c8_hybrid.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -49,7 +50,8 @@ NVCC_FLAGS = (
 # in stress units, lands within rounding of abs_tol often enough for it to
 # matter; PERF.md has the runs).
 EXTRA_FLAGS = {name: ("-fmad=false",)
-               for name in ("implicit_assembly", "implicit_eig", "implicit_barlat")}
+               for name in ("implicit_assembly", "implicit_eig", "implicit_barlat",
+                            "implicit_hybrid")}
 
 COUNTERS = KERNELS + ("ell_spmv_level",)
 

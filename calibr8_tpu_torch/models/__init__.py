@@ -9,13 +9,17 @@ carries only what the rest of the system needs to know about it: its
 parameter order, the size and initial value of its local state, and its
 local-solve tolerance.
 
-Models outside the port so far (the NN hybrid, isotropic_elastic) raise
-NotImplementedError.
+Every model of calibr8_tpu's registry is here; a name outside it raises
+NotImplementedError naming the port's registry.  The hybrid model takes
+its network from the local residual's `embedded model` sublist (the
+`config` of create_local_model), as calibr8_tpu's does.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from calibr8_tpu_torch.models.nn import FFNN
 
 
 class Elastic:
@@ -25,7 +29,7 @@ class Elastic:
     name = "elastic"
     param_names = ("E", "nu", "cte", "delta_T")
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, config=None):
         self.dim = dim
         self.abs_tol = 1e-12
 
@@ -38,6 +42,16 @@ class Elastic:
 
     def init_xi(self) -> np.ndarray:
         return np.zeros(1)
+
+
+class IsotropicElastic(Elastic):
+    """Displacement-formulation isotropic elasticity, sigma = lambda tr(eps)
+    I + 2 mu eps, with the 1-dof dummy local slot (reference:
+    isotropic_elastic.cpp; calibr8_tpu models/elastic.py:68-110).  Under
+    'mechanics' it runs with 'mixed formulation: false'."""
+
+    name = "isotropic_elastic"
+    param_names = ("E", "nu")
 
 
 class _SmallStrainPlastic(Elastic):
@@ -130,6 +144,37 @@ class HyperJ2PlaneStress(Elastic):
         return np.array([0.0, 0.0, 0.0, 1.0, 1.0, 0.0])
 
 
+class HybridHyperJ2PlaneStress(HyperJ2PlaneStress):
+    """hyper_J2_plane_stress with the hardening curve replaced by an
+    embedded feed-forward network (reference:
+    hybrid_hyper_J2_plane_stress.cpp; calibr8_tpu models/hybrid.py),
+    sigma_yield(alpha) = Y + out_scale (NN(in_scale alpha) - NN(0)).  The
+    parameters are (E, nu, Y) then the network's weights nn_<i> in FFNN's
+    flat packing; the deck gives the physical ones, and default_params()
+    the initial weights."""
+
+    name = "hybrid_hyper_J2_plane_stress"
+    base_param_names = ("E", "nu", "Y")
+
+    def __init__(self, dim: int, config=None):
+        super().__init__(dim, config)
+        cfg = (config or {}).get("embedded model", {}) or {}
+        self.nn = FFNN(cfg.get("activation function", "sigmoid"),
+                       list(cfg.get("topology", [1, 4, 1])),
+                       positive_weights=bool(cfg.get("positive weights", False)))
+        self.nn_input_scale = float(cfg.get("input scale", 1.0))
+        self.nn_output_scale = float(cfg.get("output scale", 1.0))
+        self.param_names = self.base_param_names + tuple(
+            f"nn_{i}" for i in range(self.nn.n_params))
+
+    def default_params(self) -> np.ndarray:
+        """The initial parameter vector: physical zeros, then the network's
+        initial weights."""
+        p = np.zeros(len(self.param_names))
+        p[len(self.base_param_names):] = self.nn.init_params
+        return p
+
+
 class HypoHill(_SmallStrainPlastic):
     """Hypoelastic update of the unrotated Cauchy stress TC under the
     unrotated rate d = R^T sym((F - F_prev) F^-1) R, R the polar factor of
@@ -139,10 +184,10 @@ class HypoHill(_SmallStrainPlastic):
     name = "hypo_hill"
     param_names = SmallHill.param_names
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, config=None):
         if dim != 3:
             raise ValueError("hypo_hill is a 3D model; use the plane variants in 2D")
-        super().__init__(dim)
+        super().__init__(dim, config)
 
 
 class HypoHillPlaneStrain(_SmallStrainPlastic):
@@ -180,10 +225,10 @@ class SmallHosford(_SmallStrainPlastic):
     name = "small_hosford"
     param_names = ("E", "nu", "Y", "a", "K", "S", "D")
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, config=None):
         if dim != 3:
             raise ValueError(f"{self.name} is a 3D model")
-        super().__init__(dim)
+        super().__init__(dim, config)
 
 
 class HypoHosford(SmallHosford):
@@ -208,24 +253,20 @@ class HypoBarlat(SmallHosford):
 
 _REGISTRY = {
     cls.name: cls
-    for cls in (Elastic, SmallJ2, SmallHill, SmallHillPlaneStrain, SmallHillPlaneStress,
-                HyperJ2, HyperJ2PlaneStrain, HyperJ2PlaneStress, HypoHill, HypoHillPlaneStrain,
-                HypoHillPlaneStress, SmallHosford, HypoHosford, HypoBarlat)
-}
-
-# the models the port has not got yet, and the fused-assembly twin each
-# one needs (calibr8_tpu models/batched.py)
-_QUEUED = {
-    "hybrid_hyper_J2_plane_stress": "the implicit twin with the embedded network",
-    "isotropic_elastic": "the displacement-only analytic twin",
+    for cls in (Elastic, IsotropicElastic, SmallJ2, SmallHill, SmallHillPlaneStrain,
+                SmallHillPlaneStress, HyperJ2, HyperJ2PlaneStrain, HyperJ2PlaneStress,
+                HybridHyperJ2PlaneStress, HypoHill, HypoHillPlaneStrain, HypoHillPlaneStress,
+                SmallHosford, HypoHosford, HypoBarlat)
 }
 
 
-def create_local_model(name: str, dim: int):
+def create_local_model(name: str, dim: int, config=None):
+    """The model `name` in dimension dim; `config`, the local residual's
+    sublist, goes to every model, and the hybrid reads its `embedded
+    model`."""
     if name not in _REGISTRY:
-        need = _QUEUED.get(name, "a model of calibr8_tpu's registry")
         raise NotImplementedError(
-            f"local residual type {name!r} is not ported yet: it needs {need} in the "
-            f"fused assembly (kernel 1b, implicit mode); the port has {sorted(_REGISTRY)}"
+            f"local residual type {name!r} is not a model of calibr8_tpu's registry; "
+            f"the port has all of them: {sorted(_REGISTRY)}"
         )
-    return _REGISTRY[name](dim)
+    return _REGISTRY[name](dim, config)

@@ -226,6 +226,41 @@ def t_add_diag(a, s):
     return t_sub_diag(a, -s)
 
 
+class BatchedIsotropicElastic:
+    """Twin of IsotropicElastic (calibr8_tpu models/batched.py:2014-2072):
+    displacement only, the full stress sigma = lambda tr(eps) I + 2 mu eps
+    with the 1-dof dummy local slot (xi = 0, C = xi); the analytic kernel
+    mode with the displacement-only momentum rows.  xi (1, E): [dummy];
+    params (2, E): [E, nu]."""
+
+    name = "isotropic_elastic"
+    analytic_solve = True
+    plane_stress = False
+    finite_deformation = False
+    displacement_only = True
+
+    def __init__(self, model):
+        self.model = model
+        self.dim = model.dim
+        self.nxi = 1
+        self.abs_tol = model.abs_tol
+
+    def local_solve(self, xipT, gu, parT, gu_prev=None):
+        path = torch.zeros(xipT.shape[-1], dtype=torch.int32, device=xipT.device)
+        return torch.zeros_like(xipT), path, torch.zeros_like(path)
+
+    def residual(self, xiT, xipT, gu, parT, path, gu_prev=None):
+        return xiT
+
+    def cauchy(self, xiT, gu, parT, pT=None):
+        """The full sigma (there is no pressure dof: pT is not read)."""
+        Em, nu = parT[0], parT[1]
+        lam = Em * nu / ((1.0 + nu) * (1.0 - 2.0 * nu))
+        mu = Em / (2.0 * (1.0 + nu))
+        eps = t_sym(gu)
+        return t_add_diag(2.0 * mu * eps, lam * t_trace(eps))
+
+
 def t_hill_from_ratios(R00, R11, R22, R01, R02, R12):
     """(F, G, H, L, M, N) of Hill's function from the six yield-stress
     ratios; r**-2 is written 1 / (r * r), as JAX lowers it."""
@@ -706,6 +741,49 @@ class BatchedHyperJ2PlaneStress(_HyperJ22D):
         zeta = t_voigt_to_sym(xiT[:3], 2)
         J = t_det(t_F(gu)) * xiT[4]
         return t_add_diag((self._mu(parT) / J) * zeta, 0.5 * self._kappa(parT) * (J - 1.0 / J))
+
+
+class BatchedHybridHyperJ2PlaneStress(BatchedHyperJ2PlaneStress):
+    """Twin of HybridHyperJ2PlaneStress (calibr8_tpu models/batched.py:
+    1956-2011): the hyper_J2_plane_stress twin with the hardening curve
+    replaced by the embedded feed-forward network, sigma_yield(alpha) = Y +
+    out_scale (NN(in_scale alpha) - NN(0)).  params (3 + n_nn, E) = [E, nu,
+    Y, network weights in FFNN's flat packing]: the parent twin reads
+    parT[0:2] (mu, kappa) and, through _sigma_yield alone, the rest, so
+    rows 3 and up are the network's here.  The forward pass runs per unit
+    over lane vectors, its sums in index order, as calibr8_tpu's does."""
+
+    name = "hybrid_hyper_J2_plane_stress"
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.nn = model.nn
+        self.n_base = len(model.base_param_names)
+        self.in_scale = model.nn_input_scale
+        self.out_scale = model.nn_output_scale
+
+    def _nn_eval(self, x, parT):
+        """The network over lane vectors, x (E,) -> (E,), the weights rows
+        of parT."""
+        act, idx, h = self.nn.act, self.n_base, [x]
+        n_layers = len(self.nn.shapes)
+        for li, (r, c) in enumerate(self.nn.shapes):
+            W = parT[idx:idx + r * c]
+            b = parT[idx + r * c:idx + r * c + r]
+            idx += r * c + r
+            out = []
+            for i in range(r):
+                acc = W[i * c] * h[0] + b[i]
+                for j in range(1, c):
+                    acc = acc + W[i * c + j] * h[j]
+                out.append(acc if li == n_layers - 1 else act(acc))
+            h = out
+        return h[0]
+
+    def _sigma_yield(self, alpha, parT):
+        dnn = self._nn_eval(self.in_scale * alpha, parT) - self._nn_eval(torch.zeros_like(alpha),
+                                                                          parT)
+        return parT[2] + self.out_scale * dnn
 
 
 def t_polar(F, iters: int = 6):
@@ -1275,12 +1353,14 @@ def jvp_columns(fn, v):
 BATCHED_MODELS = {
     "small_J2": BatchedSmallJ2,
     "elastic": BatchedElastic,
+    "isotropic_elastic": BatchedIsotropicElastic,
     "small_hill": BatchedSmallHill,
     "small_hill_plane_strain": BatchedSmallHillPlaneStrain,
     "small_hill_plane_stress": BatchedSmallHillPlaneStress,
     "hyper_J2": BatchedHyperJ2,
     "hyper_J2_plane_strain": BatchedHyperJ2PlaneStrain,
     "hyper_J2_plane_stress": BatchedHyperJ2PlaneStress,
+    "hybrid_hyper_J2_plane_stress": BatchedHybridHyperJ2PlaneStress,
     "hypo_hill": BatchedHypoHill,
     "hypo_hill_plane_strain": BatchedHypoHillPlaneStrain,
     "hypo_hill_plane_stress": BatchedHypoHillPlaneStress,
@@ -1292,13 +1372,15 @@ BATCHED_MODELS = {
 # the CUDA kernels' model index (csrc/fused_assembly.cu c8_fused_assembly
 # for the analytic twins; for the implicit ones csrc/implicit_assembly.cu
 # c8_implicit_assembly, ids 0-8, and, for the eigensolver twins,
-# csrc/implicit_eig.cu (9, 10) and csrc/implicit_barlat.cu (11))
+# csrc/implicit_eig.cu (9, 10) and csrc/implicit_barlat.cu (11); the
+# hybrid, csrc/implicit_hybrid.cu (12))
 KERNEL_MODEL_ID = {
-    "elastic": 0, "small_J2": 1,
+    "elastic": 0, "small_J2": 1, "isotropic_elastic": 2,
     "small_hill": 0, "small_hill_plane_strain": 1, "small_hill_plane_stress": 2,
     "hyper_J2": 3, "hyper_J2_plane_strain": 4, "hyper_J2_plane_stress": 5,
     "hypo_hill": 6, "hypo_hill_plane_strain": 7, "hypo_hill_plane_stress": 8,
     "small_hosford": 9, "hypo_hosford": 10, "hypo_barlat": 11,
+    "hybrid_hyper_J2_plane_stress": 12,
 }
 
 

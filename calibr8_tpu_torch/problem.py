@@ -98,7 +98,7 @@ class Problem:
                 + " needs the aggregation AMG (solve/amg.py's AMGPrecondFactory), which is "
                 "not ported yet; geometric multigrid runs on a refined builtin mesh"
             )
-        self.model = create_local_model(spec.model_name, dim)
+        self.model = create_local_model(spec.model_name, dim, config=lr)
         self.model.abs_tol = float(lr.get("nonlinear absolute tol", 1e-12))
         self.mech_spec = MechanicsSpec(
             dim=dim,
@@ -110,8 +110,19 @@ class Problem:
         self.disc = Disc(self.mesh, self.mech_spec, self.device, dtype)
         self.mesh = self.disc.mesh
 
-        # material parameters per elem set, model order, disc set order
-        es_names, vals = spec.materials(self.model.param_names)
+        # material parameters per elem set, model order, disc set order; a
+        # model with default_params (the hybrid's network weights, which
+        # are no deck keys) takes its defaults where the deck gives none
+        defaults = getattr(self.model, "default_params", None)
+        es_names, vals = spec.materials(self.model.param_names,
+                                        allow_missing=defaults is not None)
+        if defaults is not None:
+            p0, mats = defaults(), lr.get("materials", {})
+            for i, es in enumerate(es_names):
+                given = mats.get(es, {}) or {}
+                for j, pname in enumerate(self.model.param_names):
+                    if pname not in given:
+                        vals[i, j] = p0[j]
         expected = self.disc.elem_set_names
         if es_names and set(es_names) != set(expected):
             raise ValueError(f"materials sets {es_names} do not match mesh elem sets {expected}")

@@ -3,14 +3,18 @@
 full-width decks: the values chip_smoke.py holds the port to.
 
     JAX_PLATFORMS=cpu python3 chip_reference.py [plane_stress] [hill] [hyper_plane_stress]
-                                                [barlat] [hypo_hosford8]
+                                                [barlat] [hypo_hosford8] [iso] [hybrid]
     JAX_PLATFORMS=cpu python3 chip_reference.py adjoint DIR [bench] [hill] [hyper] [hypo] [hosford]
+                                                            [iso]
     python3 chip_reference.py sweep DIR [bench] [hill] [hyper] [hypo]
     JAX_PLATFORMS=cpu python3 chip_reference.py mg DIR [cube] [cube_step] [notch] [adjoint] [hypo_notch]
+                                                       [hybrid_adjoint]
+    python3 chip_reference.py fd cuda|cpu [test] [twin] [test1] [twin1]
 
 The first form runs each named deck (the first three by default; the
 eigensolver decks chip_smoke.eig_deck("hypo_barlat", 32) and
-eig_deck("hypo_hosford", 8) by name) through
+eig_deck("hypo_hosford", 8), iso_deck(32) and hybrid_deck(0.004) by
+name) through
 calibr8_tpu's Problem(...).solve_primal() and prints one JSON line per
 deck with J, the per-step contributions and the wall time.
 
@@ -33,7 +37,8 @@ the card and no JAX.
 The fourth runs calibr8_tpu's geometric-multigrid decks of chip_smoke.py
 (mg_cube_deck with `preconditioner reuse` none and step, mg_notch_deck,
 and dJ/dp of adjoint_deck("mg") with Adjoint(mg_factory=...); the first
-four by default; `hypo_notch` is hypo_mg_notch_deck), and prints one
+four by default; `hypo_notch` is hypo_mg_notch_deck, `hybrid_adjoint` dJ/dp
+of adjoint_deck("hybrid", on hybrid_mg_deck) the same way), and prints one
 JSON line per deck (also written to
 DIR/mg_ref_<name>.json) with J or the gradient, the Newton iterations of
 each load step, the Krylov iterations and relative residual of every
@@ -42,6 +47,18 @@ counts the solves by wrapping calibr8_tpu.solve.linear.solve_info from
 outside (return_iters), and runs the adjoint step unjitted so that the
 counts are concrete.  Run the names as parallel processes to save wall
 time.
+
+The fifth runs the port's finite-difference check of the hybrid (the
+port only, no JAX; on the card with PyTorch's deterministic algorithms,
+as chip_smoke.py's phase 5a) and prints one JSON line per deck variant
+with the error of every quotient, the log10 drop, and the drop without a
+lucky quotient, log10(max(err(1), err(0.1)) / (2 sqrt(noise c))), c =
+err(1e-3) / 1e-3 the curvature term's slope and noise the median of
+err(h) h over h = 1e-8 .. 1e-10 (J's rounding): `test` sweeps Y, nn_0,
+nn_1 ranges and pulls on tests/test_nn_models.py's deck (11 steps, as
+phase 5a), `twin` the ranges on the twin case (hybrid_twin_deck, 13
+steps, as the CLI); `test1` and `twin1` are the first deck at its
+test's ranges and the second as chip_smoke.py holds it.
 
 The first, second and fourth need JAX and the calibr8_tpu package; chip_smoke.py itself
 imports neither.  Full-width decks are for a machine with the memory and the
@@ -75,7 +92,9 @@ def primal_references(names, chip_smoke) -> None:
              "hyper_plane_stress": ("J_REF_HYPER_PLANE_STRESS_H004",
                                     chip_smoke.hyper_plane_stress_deck(0.004)),
              "barlat": ("J_REF_BARLAT_N32", chip_smoke.eig_deck("hypo_barlat", 32)),
-             "hypo_hosford8": ("J_REF_HYPO_HOSFORD_N8", chip_smoke.eig_deck("hypo_hosford", 8))}
+             "hypo_hosford8": ("J_REF_HYPO_HOSFORD_N8", chip_smoke.eig_deck("hypo_hosford", 8)),
+             "iso": ("J_REF_ISO_N32", chip_smoke.iso_deck(32)),
+             "hybrid": ("J_REF_HYBRID_H004", chip_smoke.hybrid_deck(0.004))}
     for name in names:
         const, deck = decks[name]
         t0 = time.perf_counter()
@@ -102,7 +121,7 @@ def adjoint_references(names, chip_smoke, out_dir) -> None:
 
     for name in names:
         const = {"bench": "G_REF_N32", "hill": "G_REF_HILL_N32", "hyper": "G_REF_HYPER",
-                 "hypo": "G_REF_HYPO", "hosford": "G_REF_HOSFORD"}[name]
+                 "hypo": "G_REF_HYPO", "hosford": "G_REF_HOSFORD", "iso": "G_REF_ISO"}[name]
         t0 = time.perf_counter()
         spec = load_deck(chip_smoke.adjoint_deck(name))
         prob = Problem(spec)
@@ -210,8 +229,8 @@ def mg_references(names, chip_smoke, out_dir) -> None:
         solves.clear()
         t0 = time.perf_counter()
         rec = dict(reference=name, jax=jax.__version__, cpus=os.cpu_count())
-        if name == "adjoint":
-            spec = load_deck(chip_smoke.adjoint_deck("mg"))
+        if name in ("adjoint", "hybrid_adjoint"):
+            spec = load_deck(chip_smoke.adjoint_deck("mg" if name == "adjoint" else "hybrid"))
             prob = Problem(spec)
             adj = Adjoint(prob.assembler, prob.qoi, prob.dbcs, LinearCfg(),
                           mg_factory=prob.mg_factory)
@@ -259,6 +278,69 @@ def mg_references(names, chip_smoke, out_dir) -> None:
         print(line, flush=True)
 
 
+def fd_tables(device, names, chip_smoke) -> None:
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from calibr8_tpu_torch.opt.objective import fd_gradient_check
+
+    chip_smoke.DEVICE = device
+    cs = chip_smoke
+
+    def test_deck(Y, nn, pull):
+        deck = cs._deck({"type": "notch2D", "h": 0.2}, "hybrid_hyper_J2_plane_stress",
+                        {"E": 1000.0, "nu": 0.25, "Y": 2.0}, cs.bcs_2d(pull), 3,
+                        gtype="mechanics_plane_stress")
+        deck["residuals"]["global residual"]["nonlinear max iters"] = 30
+        deck["residuals"]["local residual"]["embedded model"] = copy.deepcopy(cs.HYBRID_NET)
+        deck["inverse"] = {"materials": {"body": {"Y": list(Y), "nn_0": [-nn, nn],
+                                                  "nn_1": [-nn, nn]}}}
+        return deck
+
+    def twin_deck(Y, nn):
+        deck = cs.hybrid_twin_deck()
+        deck["inverse"] = {"materials": {"body": {"Y": list(Y), "nn_0": [-nn, nn],
+                                                  "nn_1": [-nn, nn]}}}
+        return deck
+
+    runs = []
+    for name in names:
+        if name == "test":
+            runs += [(f"test Y{list(Y)} nn+-{nn} pull {pull}", test_deck(Y, nn, pull), 11)
+                     for Y, nn, pull in itertools.product(
+                         [(1.0, 3.0), (0.5, 3.5), (1.5, 2.5), (1.8, 2.2)], [1.0, 2.0, 3.0],
+                         [0.0045, 0.005, 0.0055])]
+        elif name == "twin":
+            runs += [(f"twin Y{list(Y)} nn+-{nn}", twin_deck(Y, nn), 13)
+                     for Y, nn in itertools.product(
+                         [(8.0, 12.0), (5.0, 15.0), (9.0, 11.0), (2.0, 18.0)], [1.0, 2.0, 3.0])]
+        elif name == "test1":
+            runs.append(("test1", test_deck((1.0, 3.0), 2.0, 0.005), 11))
+        else:
+            runs.append(("twin1", cs.hybrid_twin_deck(), 13))
+    for label, deck, n in runs:
+        t0 = time.perf_counter()
+        rec = dict(fd=label, device=device, steps=n)
+        torch.use_deterministic_algorithms(device != "cpu", warn_only=True)
+        try:
+            _, _, obj, x0 = cs.adjoint_objective(deck)
+            g = obj.gradient(x0)
+            drop, errs = fd_gradient_check(obj.value, g, x0, num_steps=n)
+            c = errs[3] / 1e-3
+            noise = float(np.median([errs[k] * 10.0 ** -k for k in (8, 9, 10)]))
+            rec.update(drop=float(drop), errors=[float(e) for e in errs], c=c, noise=noise,
+                       drop_without_luck=float(np.log10(max(errs[0], errs[1])
+                                                        / (2.0 * np.sqrt(noise * c)))))
+        except Exception as exc:  # noqa: BLE001 - a variant whose primal stops is recorded
+            rec["error"] = repr(exc)[:200]
+        finally:
+            torch.use_deterministic_algorithms(False)
+        rec["seconds"] = time.perf_counter() - t0
+        print(json.dumps(rec), flush=True)
+
+
 def main(argv) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -267,6 +349,11 @@ def main(argv) -> int:
         import chip_smoke
 
         sweep_on_references(args[2:] or list(ADJOINT_DECKS), chip_smoke, args[1])
+        return 0
+    if args[:1] == ["fd"]:
+        import chip_smoke
+
+        fd_tables(args[1], args[2:] or ["test", "twin"], chip_smoke)
         return 0
     import jax
 

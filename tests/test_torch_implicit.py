@@ -327,3 +327,68 @@ def test_probe_plain_version_matches_numpy():
     assert outs["float32"].dtype == torch.float32 and outs["loop"].shape == (3, 8, 1024)
     assert kernels.launches == before
     assert probe.main(["--device", "cpu"]) == 0
+
+
+def test_isotropic_and_hybrid_registry_defaults_and_cap():
+    """isotropic_elastic and the hybrid as calibr8_tpu registers them
+    (models/elastic.py:68, models/hybrid.py): the analytic displacement-
+    only twin takes only non-mixed specs; the hybrid's parameters are E, nu,
+    Y and its network's weights nn_<i>, which the deck may leave out (they
+    default to the network's initial ones, as calibr8_tpu's problem.py:
+    122-134 fills them).  The kernel's network cap raises
+    NotImplementedError in the wrapper's argument check; the plain version
+    on CPU tensors takes any network and counts no launch."""
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.fem.fused_assembly import check_supported, hybrid_net_args
+    from calibr8_tpu_torch.mechanics.global_residual import MechanicsSpec
+    from calibr8_tpu_torch.models import create_local_model
+    from calibr8_tpu_torch.models.batched import get_batched_model
+    from calibr8_tpu_torch.models.nn import FFNN
+
+    iso = create_local_model("isotropic_elastic", 3)
+    assert iso.param_names == ("E", "nu") and iso.nxi() == 1
+    iso.abs_tol = 1e-12
+    bm = get_batched_model(iso)
+    assert bm.analytic_solve and bm.displacement_only
+    check_supported(bm, MechanicsSpec(dim=3, mixed=False))
+    check_supported(bm, MechanicsSpec(dim=2, mixed=False, plane_stress=True))
+    with pytest.raises(NotImplementedError, match="displacement-only"):
+        check_supported(bm, MechanicsSpec(dim=3))
+
+    net = {"activation function": "tanh", "topology": [1, 3, 2, 1], "output scale": 2.0}
+    m = create_local_model("hybrid_hyper_J2_plane_stress", 2, config={"embedded model": net})
+    assert m.param_names[:3] == ("E", "nu", "Y") and len(m.param_names) == 3 + 6 + 8 + 3
+    assert m.param_names[3:] == tuple(f"nn_{i}" for i in range(17))
+    w0 = FFNN("tanh", [1, 3, 2, 1]).init_params
+    np.testing.assert_array_equal(m.default_params(), np.concatenate([np.zeros(3), w0]))
+    deck = case_deck(TWINS["hybrid_hyper_J2_plane_stress"], num_steps=1)
+    lr = deck["residuals"]["local residual"]
+    lr["embedded model"] = net
+    lr["materials"]["body"]["nn_2"] = 0.125
+    tp = Problem(load_deck(copy.deepcopy(deck)), device="cpu")
+    want = np.concatenate([[1000.0, 0.25, 10.0], w0])
+    want[3 + 2] = 0.125
+    np.testing.assert_array_equal(tp.params0.numpy()[0], want)
+    bm = tp.assembler.bmodel
+    args = hybrid_net_args(bm, tp.params0)
+    assert args[:2] == (2, 3) and list(args[2]) == [1, 3, 2, 1] and args[3:] == (1.0, 2.0, 20)
+
+    for topo in ([1, 17, 1], [1, 2, 2, 2, 2, 2, 1], [2, 4, 1]):
+        bm.nn = FFNN("tanh", topo)
+        with pytest.raises(NotImplementedError, match="cap"):
+            hybrid_net_args(bm, tp.params0)
+    bm.nn = FFNN("tanh", [1, 16, 16, 16, 16, 1])
+    hybrid_net_args(bm, tp.params0)
+
+    # the plain version has no cap: 20 hidden units on the CPU
+    lr["embedded model"] = {**net, "topology": [1, 20, 1]}
+    lr["materials"]["body"].pop("nn_2")
+    tp = Problem(load_deck(copy.deepcopy(deck)), device="cpu")
+    d = tp.disc
+    x = torch.tensor(_state(d.mesh.coords, d.n_nodes, 2, False))
+    xi_prev = torch.tensor(tp.model.init_xi())[None].repeat(d.n_elem, 1)
+    before = dict(kernels.launches)
+    out = fused_assembly(d, tp.assembler.bmodel, x, xi_prev, tp.params0, x_prev=0.5 * x)
+    ref = fused_assembly_plain(d, tp.assembler.bmodel, x, xi_prev, tp.params0, x_prev=0.5 * x)
+    assert all(torch.equal(u, v) for u, v in zip(out, ref))
+    assert kernels.launches == before and bool(torch.isfinite(out[1]).all())

@@ -116,8 +116,9 @@ def test_state_from_numpy_round_trip():
 def _unsupported(key):
     deck = make_deck(CUBE, "small_J2", J2_MAT, BCS_3D(0.02), 1)
     if key == "model":
-        # a model outside the port (its materials are not read before the raise)
-        deck["residuals"]["local residual"]["type"] = "hybrid_hyper_J2_plane_stress"
+        # a local residual type outside calibr8_tpu's registry, all of which
+        # the port has (its materials are not read before the raise)
+        deck["residuals"]["local residual"]["type"] = "unknown_model"
     elif key == "multigrid":
         deck["linear algebra"] = {"preconditioner": "multigrid"}
     elif key == "amg":
@@ -159,5 +160,7 @@ def test_decks_outside_the_slice_fail_loudly(key):
 
 def test_unported_model_names_what_it_needs():
     with pytest.raises(NotImplementedError,
-                       match="hybrid_hyper_J2_plane_stress.*the embedded network"):
+                       match="'unknown_model' is not a model of calibr8_tpu's registry; the port "
+                             r"has all of them: \[.*'hybrid_hyper_J2_plane_stress'.*"
+                             "'isotropic_elastic'"):
         Problem(load_deck(_unsupported("model")), device="cpu")
