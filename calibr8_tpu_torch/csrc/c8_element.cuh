@@ -14,7 +14,9 @@
 //
 // Layouts (E = number of elements, e = this element):
 //   x        (n_dofs,)        flat dofs, u block then p block
-//   edofs_T  (nde, E) int32   element dof ids, node-interleaved [u.., p]
+//   edofs_T  (nde, E) int32   element dof ids, node-interleaved [u.., p];
+//                             null: x holds the (nde, E) element columns
+//                             (the element-level entry, elem_dof)
 //   xi_prev  (E, nxi)         previous local state
 //   gN_T     (npe, d, E)      shape-function gradients
 //   detJ, h  (E,)
@@ -37,6 +39,17 @@ struct Quad {
   T mass[4][4];
   int npts;
 };
+
+// The position in x of element e's i-th dof: x[edofs_T[i, e]], or, when
+// edofs_T is null, x[i, e]: x then holds the pre-gathered (nde, E)
+// element columns (the element-level entry of calibr8_tpu's Pallas
+// kernel, fem/pallas_assembly.py:529-543, which parallel/dist.py calls
+// per part).  A branch at run time, uniform across the grid: one build
+// serves both entries.
+C8_HD size_t elem_dof(const int* __restrict__ edofs_T, int i, int E, int e) {
+  const size_t k = (size_t)i * E + e;
+  return edofs_T ? (size_t)edofs_T[k] : k;
+}
 
 // -- small tensor helpers over plain or dual scalars --------------------
 
@@ -267,8 +280,8 @@ C8_HD void assemble_element(
 #pragma unroll
   for (int n = 0; n < NPE; ++n) {
 #pragma unroll
-    for (int c = 0; c < D; ++c) u[n][c] = x[edofs_T[(n * NDPN + c) * E + e]];
-    if constexpr (MIXED) p[n] = x[edofs_T[(n * NDPN + D) * E + e]];
+    for (int c = 0; c < D; ++c) u[n][c] = x[elem_dof(edofs_T, n * NDPN + c, E, e)];
+    if constexpr (MIXED) p[n] = x[elem_dof(edofs_T, n * NDPN + D, E, e)];
 #pragma unroll
     for (int j = 0; j < D; ++j) gN[n][j] = gN_T[(n * D + j) * E + e];
   }

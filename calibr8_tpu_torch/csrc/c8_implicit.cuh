@@ -164,8 +164,8 @@ C8_HD void implicit_element(
 #pragma unroll
   for (int n = 0; n < NPE; ++n) {
 #pragma unroll
-    for (int c = 0; c < D; ++c) u[n][c] = x[edofs_T[(n * NDPN + c) * E + e]];
-    p[n] = MIXED ? x[edofs_T[(n * NDPN + D) * E + e]] : T(0);
+    for (int c = 0; c < D; ++c) u[n][c] = x[elem_dof(edofs_T, n * NDPN + c, E, e)];
+    p[n] = MIXED ? x[elem_dof(edofs_T, n * NDPN + D, E, e)] : T(0);
 #pragma unroll
     for (int j = 0; j < D; ++j) gN[n][j] = gN_T[(n * D + j) * E + e];
   }
@@ -188,7 +188,7 @@ C8_HD void implicit_element(
 #pragma unroll
   for (int n = 0; n < NPE; ++n)
 #pragma unroll
-    for (int c = 0; c < D; ++c) up[n][c] = FINITE ? x_prev[edofs_T[(n * NDPN + c) * E + e]] : T(0);
+    for (int c = 0; c < D; ++c) up[n][c] = FINITE ? x_prev[elem_dof(edofs_T, n * NDPN + c, E, e)] : T(0);
   T gu[D][D], gup[D][D];
 #pragma unroll
   for (int i = 0; i < D; ++i)

@@ -27,6 +27,15 @@
 // (125 to 35,937 nodes on the cube MG deck), so the small ones are bound
 // by the launch, not by bytes.
 //
+// And it is kernel 3c per part, the local apply of the domain-decomposed
+// solver (parallel/dist.py:445-471 there, calibr8_tpu_torch/parallel/
+// dist.py here): every part's local node space [owned | ghost] is laid
+// end to end into one node space of P * N_loc nodes, the neighbour ids
+// offset by p * N_loc and one pad sentinel shared, so one launch of the
+// (m, m) instance with m = ndpn applies every part's matrix to the
+// node-interleaved local vectors.  3D mixed u/p gives m = 4: the (4, 4)
+// instance.
+//
 // C interface, bound with ctypes (calibr8_tpu_torch/solve/ellpack.py).
 
 #include <cuda_runtime.h>
@@ -77,6 +86,7 @@ int launch(int dim, int ndpn, int N, int K, const void* A_T, const void* nbr_T,
   else if (dim == 2 && ndpn == 3) C8_LAUNCH(2, 3);
   else if (dim == 3 && ndpn == 3) C8_LAUNCH(3, 3);
   else if (dim == 3 && ndpn == 4) C8_LAUNCH(3, 4);
+  else if (dim == 4 && ndpn == 4) C8_LAUNCH(4, 4);
   else return (int)cudaErrorInvalidValue;
 #undef C8_LAUNCH
   return (int)cudaGetLastError();
@@ -88,8 +98,8 @@ extern "C" {
 
 // device: the CUDA ordinal of the tensors (this library's runtime keeps
 // its own current device); dtype: 0 float32, 1 float64; ndpn = dim
-// (displacement-only, or a multigrid level's m = dim = ndpn, 1 to 3) or
-// dim + 1 (mixed u/p).  Returns the cudaError_t of the launch (0 on
+// (displacement-only, a multigrid level's m = dim = ndpn, 1 to 3, or the
+// per-part apply's m = dim = ndpn, 2 to 4) or dim + 1 (mixed u/p).  Returns the cudaError_t of the launch (0 on
 // success).
 int c8_ell_spmv(int device, int dtype, int dim, int ndpn, int N, int K, const void* A_T,
                 const void* nbr_T, const void* x, void* y, void* stream) {

@@ -77,17 +77,25 @@ def adjoint_blocks(disc, bmodel, elem_res, x, x_prev, xi, xi_prev, path, params_
     """The blocks for every element of `disc` from the global state: x,
     x_prev (n_dofs,), xi, xi_prev (E, nxi), path (E,), params_all
     (n_sets, n_params).  Returns {name: (rows, cols, E) contiguous}."""
-    E = disc.n_elem
-    args = (
-        x[disc.edofs].T, x_prev[disc.edofs].T, xi.T, xi_prev.T, path,
-        disc.gN_T, disc.detJ, disc.h, params_all[disc.es_ids].T,
+    return adjoint_blocks_elems(
+        bmodel, disc.spec, elem_res, x[disc.edofs].T, x_prev[disc.edofs].T, xi.T, xi_prev.T,
+        path, disc.gN_T, disc.detJ, disc.h, params_all[disc.es_ids].T, chunk=chunk,
     )
+
+
+def adjoint_blocks_elems(bmodel, spec, elem_res, x_eT, xp_eT, xiT, xipT, path, gNT, detJ, h,
+                         parT, chunk: int = ELEM_CHUNK):
+    """blocks_kernel over gathered elements (the domain-decomposed
+    solver's parts laid end to end, or a Disc's elements), `chunk`
+    elements at a time.  Returns {name: (rows, cols, E) contiguous}."""
+    args = (x_eT, xp_eT, xiT, xipT, path, gNT, detJ, h, parT)
+    E = x_eT.shape[-1]
     if E <= chunk:
         return {k: v.contiguous() for k, v in
-                blocks_kernel(bmodel, disc.spec, elem_res, *args).items()}
+                blocks_kernel(bmodel, spec, elem_res, *args).items()}
     out = None
     for s in range(0, E, chunk):
-        part = blocks_kernel(bmodel, disc.spec, elem_res, *(a[..., s:s + chunk] for a in args))
+        part = blocks_kernel(bmodel, spec, elem_res, *(a[..., s:s + chunk] for a in args))
         if out is None:
             out = {k: torch.empty(*v.shape[:-1], E, dtype=v.dtype, device=v.device)
                    for k, v in part.items()}

@@ -45,6 +45,13 @@ det F at the element's F (pallas_assembly.py:235,299-315,423-451).
   fused_assembly_plain(...)  the same function in PyTorch, tangents from
                              torch.func.jvp over unit seeds (the
                              counterpart of jax.linearize)
+  assembly_elems(...)        the element-level entry (kernel 1c, which the
+                             domain-decomposed solver calls on its parts'
+                             gathered elements): the same kernels reading
+                             pre-gathered element columns, counted as
+                             `assembly_elems`
+  assembly_elems_plain(...)  its plain version, which fused_assembly_plain
+                             calls on the gathered elements of a Disc
   FusedAssembler             R, J, diag, xi, path, nfail for the Newton loop
 
 Outputs keep calibr8_tpu's trailing layout: R_T (nde, E), J_T
@@ -120,15 +127,15 @@ def _quad_array(d: int):
     return (ctypes.c_double * len(flat))(*flat), len(w1)
 
 
-def _outputs(disc, bmodel):
-    nde, E = disc.spec.ndofs_elem, disc.n_elem
-    opts = dict(dtype=disc.dtype, device=disc.device)
+def _outputs(spec, bmodel, E, dtype, device):
+    nde = spec.ndofs_elem
+    opts = dict(dtype=dtype, device=device)
     return (
         torch.empty(nde, E, **opts),
         torch.empty(nde, nde, E, **opts),
         torch.empty(bmodel.nxi, E, **opts),
-        torch.empty(E, dtype=torch.int32, device=disc.device),
-        torch.empty(E, dtype=torch.int32, device=disc.device),
+        torch.empty(E, dtype=torch.int32, device=device),
+        torch.empty(E, dtype=torch.int32, device=device),
     )
 
 
@@ -158,24 +165,9 @@ def fused_assembly(disc, bmodel, x, xi_prev, params_all, x_prev=None):
     if not bmodel.analytic_solve:
         return implicit_assembly(disc, bmodel, x, xi_prev, params_all, x_prev=x_prev)
     _check_inputs(disc, bmodel, x, xi_prev, params_all)
-    spec = disc.spec
-    check_supported(bmodel, spec)
-    R_T, J_T, xi_T, path, fail = _outputs(disc, bmodel)
-    quad, npts = _quad_array(spec.dim)
-    fn = kernels.function("fused_assembly", "c8_fused_assembly", _ARGTYPES)
-    err = fn(
-        x.device.index, kernels.dtype_code(disc.dtype), KERNEL_MODEL_ID[bmodel.name], spec.dim,
-        disc.n_elem, x.data_ptr(), disc.edofs_T.data_ptr(), xi_prev.data_ptr(),
-        disc.gN_T.data_ptr(), disc.detJ.data_ptr(), disc.h.data_ptr(),
-        params_all.data_ptr(), disc.es_ids32.data_ptr(),
-        ctypes.cast(quad, ctypes.c_void_p), npts,
-        float(spec.stab_multiplier) * 0.5, float(bmodel.abs_tol), row_thickness(spec),
-        R_T.data_ptr(), J_T.data_ptr(), xi_T.data_ptr(), path.data_ptr(),
-        fail.data_ptr(), kernels.stream_ptr(disc.device),
-    )
-    kernels.check("fused_assembly", err)
-    kernels.launches["fused_assembly"] += 1
-    return R_T, J_T, xi_T, path, fail
+    check_supported(bmodel, disc.spec)
+    return _launch(disc.spec, bmodel, disc.n_elem, x, None, disc.edofs_T, xi_prev, disc.gN_T,
+                   disc.detJ, disc.h, params_all, disc.es_ids32)
 
 
 _IMPLICIT_ARGTYPES = (
@@ -246,54 +238,145 @@ def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None, x
         req(newton_iters.shape == (E,) and newton_iters.dtype == torch.int32
             and newton_iters.device == disc.device and newton_iters.is_contiguous(),
             "newton_iters must be a contiguous (E,) int32 tensor on the Disc's device")
-    lib, symbol = IMPLICIT_LIB.get(bmodel.name, ("implicit_assembly", "c8_implicit_assembly"))
-    net, argtypes = (), _IMPLICIT_ARGTYPES
-    if lib == "implicit_hybrid":
-        net = hybrid_net_args(bmodel, params_all)
-        argtypes = _IMPLICIT_ARGTYPES + _HYBRID_ARGTYPES
-    R_T, J_T, xi_T, path, fail = _outputs(disc, bmodel)
+    return _launch(spec, bmodel, E, x, x_prev, disc.edofs_T, xi_prev, disc.gN_T, disc.detJ,
+                   disc.h, params_all, disc.es_ids32, newton_iters=newton_iters)
+
+
+def _launch(spec, bmodel, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params_all, es_ids32,
+            newton_iters=None, counter=None):
+    """Launch the twin's library on checked CUDA arguments into fresh
+    outputs (R_T, J_T, xi_T, path, fail): the analytic kernel
+    (csrc/fused_assembly.cu) or the twin's implicit one (IMPLICIT_LIB).
+    edofs_T None: x (and x_prev) hold the (nde, E) element columns (the
+    element-level entry).  The launch counts under `counter`, by default
+    the library's name."""
+    R_T, J_T, xi_T, path, fail = _outputs(spec, bmodel, E, x.dtype, x.device)
     quad, npts = _quad_array(spec.dim)
-    fn = kernels.function(lib, symbol, argtypes)
-    err = fn(
-        x.device.index, kernels.dtype_code(disc.dtype), KERNEL_MODEL_ID[bmodel.name], E,
-        x.data_ptr(), (x if x_prev is None else x_prev).data_ptr(), disc.edofs_T.data_ptr(),
-        xi_prev.data_ptr(),
-        disc.gN_T.data_ptr(), disc.detJ.data_ptr(), disc.h.data_ptr(),
-        params_all.data_ptr(), disc.es_ids32.data_ptr(),
-        ctypes.cast(quad, ctypes.c_void_p), npts,
-        float(spec.stab_multiplier) * 0.5, float(spec.thickness), float(bmodel.abs_tol),
-        max(bmodel.abs_tol * 10.0, 1e-30),
-        R_T.data_ptr(), J_T.data_ptr(), xi_T.data_ptr(), path.data_ptr(), fail.data_ptr(),
-        None if newton_iters is None else newton_iters.data_ptr(),
-        kernels.stream_ptr(disc.device), *net,
-    )
+    ed = None if edofs_T is None else edofs_T.data_ptr()
+    if bmodel.analytic_solve:
+        lib = "fused_assembly"
+        fn = kernels.function(lib, "c8_fused_assembly", _ARGTYPES)
+        err = fn(
+            x.device.index, kernels.dtype_code(x.dtype), KERNEL_MODEL_ID[bmodel.name], spec.dim,
+            E, x.data_ptr(), ed, xi_prev.data_ptr(), gN_T.data_ptr(), detJ.data_ptr(),
+            h.data_ptr(), params_all.data_ptr(), es_ids32.data_ptr(),
+            ctypes.cast(quad, ctypes.c_void_p), npts,
+            float(spec.stab_multiplier) * 0.5, float(bmodel.abs_tol), row_thickness(spec),
+            R_T.data_ptr(), J_T.data_ptr(), xi_T.data_ptr(), path.data_ptr(),
+            fail.data_ptr(), kernels.stream_ptr(x.device),
+        )
+    else:
+        lib, symbol = IMPLICIT_LIB.get(bmodel.name, ("implicit_assembly", "c8_implicit_assembly"))
+        net, argtypes = (), _IMPLICIT_ARGTYPES
+        if lib == "implicit_hybrid":
+            net = hybrid_net_args(bmodel, params_all)
+            argtypes = _IMPLICIT_ARGTYPES + _HYBRID_ARGTYPES
+        fn = kernels.function(lib, symbol, argtypes)
+        err = fn(
+            x.device.index, kernels.dtype_code(x.dtype), KERNEL_MODEL_ID[bmodel.name], E,
+            x.data_ptr(), (x if x_prev is None else x_prev).data_ptr(), ed, xi_prev.data_ptr(),
+            gN_T.data_ptr(), detJ.data_ptr(), h.data_ptr(),
+            params_all.data_ptr(), es_ids32.data_ptr(),
+            ctypes.cast(quad, ctypes.c_void_p), npts,
+            float(spec.stab_multiplier) * 0.5, float(spec.thickness), float(bmodel.abs_tol),
+            max(bmodel.abs_tol * 10.0, 1e-30),
+            R_T.data_ptr(), J_T.data_ptr(), xi_T.data_ptr(), path.data_ptr(), fail.data_ptr(),
+            None if newton_iters is None else newton_iters.data_ptr(),
+            kernels.stream_ptr(x.device), *net,
+        )
     kernels.check(lib, err)
-    kernels.launches[lib] += 1
+    kernels.launches[counter or lib] += 1
     return R_T, J_T, xi_T, path, fail
+
+
+def assembly_elems(spec, bmodel, x_eT, xp_eT, xi_prev_T, gN_T, detJ, h, params_all, es_ids,
+                   newton_iters=None):
+    """The element-level entry (kernel 1c of calibr8_tpu's
+    make_pallas_assemble, fem/pallas_assembly.py:529-543, built and called
+    per part by parallel/dist.py:199-215,308): (R_T, J_T, xi_T, path,
+    fail) for E pre-gathered elements in trailing layout,
+
+      x_eT, xp_eT (nde, E)   element dofs and the previous step's (xp_eT
+                             is read by the finite-deformation twins)
+      xi_prev_T   (nxi, E)   a transposed view of a contiguous (E, nxi)
+      gN_T (npe, d, E), detJ (E,), h (E,)
+      params_all (n_sets, n_params) and es_ids (E,): each element reads
+                             its set's row, as the single-device entry does
+
+    On CUDA tensors this launches the twin's library with a null edofs_T
+    (the kernels then read x_eT's columns; c8_element.cuh elem_dof), the
+    same arithmetic as fused_assembly on the same elements, counted as
+    `assembly_elems`; on CPU tensors it runs the plain version.
+    `newton_iters` as for implicit_assembly (implicit twins)."""
+    if not x_eT.is_cuda:
+        return assembly_elems_plain(spec, bmodel, x_eT, xp_eT, xi_prev_T, gN_T, detJ, h,
+                                    params_all, es_ids, newton_iters=newton_iters)
+    check_supported(bmodel, spec)
+    req = kernels.require
+    nde, E = x_eT.shape
+    d, npe = spec.dim, spec.npe
+    req(nde == spec.ndofs_elem, "x_eT's rows are not the spec's element dofs")
+    req(xp_eT is not None or not bmodel.finite_deformation,
+        "the finite-deformation twins read x_prev: pass xp_eT")
+    xi_prev = xi_prev_T.T
+    named = [("x_eT", x_eT, (nde, E)), ("xi_prev_T", xi_prev, (E, bmodel.nxi)),
+             ("gN_T", gN_T, (npe, d, E)), ("detJ", detJ, (E,)), ("h", h, (E,)),
+             ("params_all", params_all, (params_all.shape[0], len(bmodel.model.param_names)))]
+    if xp_eT is not None:
+        named.append(("xp_eT", xp_eT, (nde, E)))
+    # the messages are formatted only on failure: formatted eagerly they
+    # cost tens of microseconds of host time a call, as much as the kernel
+    # itself on the memory-bound twins
+    for name, t, shape in named:
+        if (tuple(t.shape) != shape or t.device != x_eT.device or t.dtype != x_eT.dtype
+                or not t.is_contiguous()):
+            req(False, f"{name}: shape {tuple(t.shape)}, {t.dtype} on {t.device}, contiguous "
+                       f"{t.is_contiguous()}; want {shape}, {x_eT.dtype} on {x_eT.device}, "
+                       "contiguous (xi_prev_T: its transpose)")
+    req(es_ids.shape == (E,) and es_ids.dtype == torch.int32 and es_ids.device == x_eT.device
+        and es_ids.is_contiguous(),
+        "es_ids must be a contiguous (E,) int32 tensor on x_eT's device")
+    if newton_iters is not None:
+        req(not bmodel.analytic_solve and newton_iters.shape == (E,)
+            and newton_iters.dtype == torch.int32 and newton_iters.device == x_eT.device
+            and newton_iters.is_contiguous(),
+            "newton_iters must be a contiguous (E,) int32 tensor on x_eT's device (implicit twins)")
+    return _launch(spec, bmodel, E, x_eT, xp_eT, None, xi_prev, gN_T, detJ, h, params_all,
+                   es_ids, newton_iters=newton_iters, counter="assembly_elems")
 
 
 def fused_assembly_plain(disc, bmodel, x, xi_prev, params_all, x_prev=None,
                          newton_iters=None):
     """The plain PyTorch version of the kernels: the same function, the
     same outputs, on any device; `newton_iters` as for implicit_assembly."""
-    spec = disc.spec
+    return assembly_elems_plain(
+        disc.spec, bmodel, x[disc.edofs].T, None if x_prev is None else x_prev[disc.edofs].T,
+        xi_prev.T, disc.gN_T, disc.detJ, disc.h, params_all, disc.es_ids,
+        newton_iters=newton_iters,
+    )
+
+
+def assembly_elems_plain(spec, bmodel, x_eT, xp_eT, xi_prev_T, gN_T, detJ, h, params_all,
+                         es_ids, newton_iters=None):
+    """The plain PyTorch version of assembly_elems (and, on gathered
+    elements, of every assembly kernel): the same function, the same
+    outputs, on any device; `newton_iters` as for implicit_assembly."""
     d, npe, ndpn, nde = spec.dim, spec.npe, spec.ndofs_per_node, spec.ndofs_elem
-    E = disc.n_elem
+    E = x_eT.shape[1]
     ngu = d * d
     mixed = spec.mixed
-    dtype = x.dtype
+    dtype = x_eT.dtype
     _, _, mass = quadrature_tables(d)
 
-    x_eT = x[disc.edofs].T
-    gNT = disc.gN_T
-    dJ, hh = disc.detJ, disc.h
+    gNT = gN_T
+    dJ, hh = detJ, h
     geom = (gNT, dJ, hh)
-    parT = params_all[disc.es_ids].T
-    xipT = xi_prev.T
+    parT = params_all[es_ids.long()].T
+    xipT = xi_prev_T
     wdv0 = dJ * PARENT_MEASURE[d]
     gu = elem_kinematics(spec, x_eT, gNT)
     # frozen under the seeds, as calibr8_tpu's kernel holds it
-    gu_prev = None if x_prev is None else elem_kinematics(spec, x_prev[disc.edofs].T, gNT)
+    gu_prev = None if xp_eT is None else elem_kinematics(spec, xp_eT, gNT)
     # the nodal pressures are constants of the grad_u (and xi) seeds
     p_eT = x_eT.reshape(npe, ndpn, E)[:, d] if mixed else None
     elem_rows = make_elem_rows(bmodel, spec)
@@ -336,7 +419,7 @@ def fused_assembly_plain(disc, bmodel, x, xi_prev, params_all, x_prev=None,
         R_T = Hf0[nxi:]
     K = K.reshape(nde, d, d, E)  # K[i, c, j] = dR_i/dgu[c, j]
 
-    J_T = torch.empty(nde, nde, E, dtype=dtype, device=x.device)
+    J_T = torch.empty(nde, nde, E, dtype=dtype, device=x_eT.device)
     J5 = J_T.view(npe, ndpn, npe, ndpn, E)
     # u columns: J[i, (m, c)] = sum_j K[i, c, j] gN[m, j]
     J5[:, :, :, :d] = torch.einsum("icjE,mjE->imcE", K, gNT).reshape(npe, ndpn, npe, d, E)
@@ -354,7 +437,7 @@ def fused_assembly_plain(disc, bmodel, x, xi_prev, params_all, x_prev=None,
         # p columns of the momentum rows: -(1/npe) wdv0 pcol[n, ci], for every m
         J5[:, :d, :, d] = (-(1.0 / npe) * pcol * wdv0)[:, :, None, :]
         # p columns of the pressure rows: -tau wdv0 gg[m, n] - (dJ/psf) mass[n][m]
-        mass_t = torch.tensor(mass, dtype=dtype, device=x.device)
+        mass_t = torch.tensor(mass, dtype=dtype, device=x_eT.device)
         J5[:, d, :, d] = (-stab_tau(spec, parT, hh) * wdv0 * gg
                           - (dJ / bmodel.pressure_scale_factor(parT)) * mass_t[:, :, None])
     return R_T, J_T, xiT, path, fail

@@ -10,9 +10,13 @@ per source, all started together.
 
 Every wrapper that launches a kernel adds one to `launches[name]` where
 it launches, and nowhere else; `reset_launches()` sets the counts to 0.
-A counter is named after its kernel's source, except `ell_spmv_level`:
-the multigrid level apply (calibr8_tpu's kernel 3c, LevelEllOperator)
-launches the kernels of `ell_spmv.cu` on level shapes and counts apart.
+A counter is named after its kernel's source, except three that count
+entries apart: `ell_spmv_level`, the multigrid level apply (calibr8_tpu's
+kernel 3c, LevelEllOperator), and `ell_spmv_part`, the per-part local
+apply of the domain-decomposed solver (3c per part, parallel/dist.py),
+which launch the kernels of `ell_spmv.cu` on level or part shapes; and
+`assembly_elems`, the element-level entry of the assembly (kernel 1c),
+which launches the assembly libraries on pre-gathered element columns.
 Kernel 1b, the implicit assembly, is four sources: `implicit_assembly.cu`
 (the Hill, hyper_J2 and hypo_hill families), `implicit_eig.cu` (the
 Hosford twins), `implicit_barlat.cu` (hypo_barlat) and
@@ -53,7 +57,7 @@ EXTRA_FLAGS = {name: ("-fmad=false",)
                for name in ("implicit_assembly", "implicit_eig", "implicit_barlat",
                             "implicit_hybrid")}
 
-COUNTERS = KERNELS + ("ell_spmv_level",)
+COUNTERS = KERNELS + ("ell_spmv_level", "ell_spmv_part", "assembly_elems")
 
 launches = {name: 0 for name in COUNTERS}
 

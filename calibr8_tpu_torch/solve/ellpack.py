@@ -27,6 +27,10 @@ displacement chain, 1 for the pressure chain) on node-interleaved
 vectors x[n * m + j], assembled from element blocks (npe*m, npe*m, E),
 with no Dirichlet rows.  Its apply launches the ell_spmv kernel's (m, m)
 instance on the card and counts as `ell_spmv_level`.
+
+part_ell_spmv is the same kernel per part for the domain-decomposed
+solver (parallel/dist.py): every part's local matrix at once, one launch,
+counted as `ell_spmv_part`.
 """
 
 from __future__ import annotations
@@ -178,6 +182,34 @@ def level_ell_spmv_plain(A_T, nbr_T, x, m: int):
     X = torch.cat([x.reshape(n, m), torch.zeros(1, m, dtype=x.dtype, device=x.device)])
     G_T = X[nbr_T.long()].permute(0, 2, 1)  # (K, m, n)
     return torch.einsum("sijn,sjn->in", A_T, G_T).T.reshape(-1)
+
+
+def part_ell_spmv(A_T, nbr_T, x, m: int):
+    """y_p = A_p x_p for every part p of the domain-decomposed solver at
+    once (kernel 3c per part: calibr8_tpu's parallel/dist.py:416-471, the
+    einsum on the CPU and the Pallas kernel per part on the TPU).  x (P,
+    N_loc, m) holds each part's local [owned | ghost] values,
+    node-interleaved; the parts' local matrices are laid end to end into
+    one node space of P * N_loc nodes, A_T (K, m, m, P * N_loc) and nbr_T
+    (K, P * N_loc) int32 with part p's neighbour ids offset by p * N_loc
+    and the pad slots at P * N_loc.  Returns y (P, N_loc, m), the local
+    rows, ghost rows holding partial sums.  On CUDA tensors this is one
+    launch of the ell_spmv kernel's (m, m) instance for all parts, counted
+    as `ell_spmv_part` (or raises); on CPU tensors it runs the plain
+    version."""
+    if not x.is_cuda:
+        return part_ell_spmv_plain(A_T, nbr_T, x, m)
+    kernels.require(x.dim() == 3 and x.shape[2] == m and x.is_contiguous(),
+                    f"x must be a contiguous (P, N_loc, {m}) tensor, got {tuple(x.shape)}")
+    y = torch.empty_like(x)
+    _launch("ell_spmv", "c8_ell_spmv", A_T, nbr_T, x.reshape(-1), m, y, counter="ell_spmv_part")
+    return y
+
+
+def part_ell_spmv_plain(A_T, nbr_T, x, m: int):
+    """The plain PyTorch version of part_ell_spmv: level_ell_spmv_plain on
+    the parts' joint node space."""
+    return level_ell_spmv_plain(A_T, nbr_T, x.reshape(-1), m).reshape(x.shape)
 
 
 def _node_matrix(x, n, dim, ndpn):

@@ -10,6 +10,8 @@ full-width decks: the values chip_smoke.py holds the port to.
     JAX_PLATFORMS=cpu python3 chip_reference.py mg DIR [cube] [cube_step] [notch] [adjoint] [hypo_notch]
                                                        [hybrid_adjoint]
     python3 chip_reference.py fd cuda|cpu [test] [twin] [test1] [twin1]
+    JAX_PLATFORMS=cpu python3 chip_reference.py dist
+    python3 chip_reference.py dist_tol [bench] [hyper]
 
 The first form runs each named deck (the first three by default; the
 eigensolver decks chip_smoke.eig_deck("hypo_barlat", 32) and
@@ -60,7 +62,22 @@ phase 5a), `twin` the ranges on the twin case (hybrid_twin_deck, 13
 steps, as the CLI); `test1` and `twin1` are the first deck at its
 test's ranges and the second as chip_smoke.py holds it.
 
-The first, second and fourth need JAX and the calibr8_tpu package; chip_smoke.py itself
+The sixth runs calibr8_tpu on chip_smoke.dist_adjoint_deck(), its large
+domain-decomposed test deck (notch2D h=0.0145, small_J2, GMRES at 1e-13):
+the single-device J and dJ/dp (its Adjoint with the deck's linear
+settings), then its DistPrimal / DistAdjoint at 8 parts on 8 host
+devices, and prints one JSON line with both and their difference; the
+first pair is chip_smoke.py's J_REF_DIST / G_REF_DIST.  It fits this
+size of deck on a CPU of a few cores.
+
+The seventh, the port only on the card, tabulates J of the full-width
+bench and hyper decks at the deck's Newton tolerance and converged to an
+absolute 1e-9 .. 1e-11, through the single-device path and DistPrimal at
+8 parts: at the deck's tolerance the two paths' J differ by the Newton
+tolerance's reach, converged they agree (chip_smoke.py's
+converged_deck).
+
+The first, second, fourth and sixth need JAX and the calibr8_tpu package; chip_smoke.py itself
 imports neither.  Full-width decks are for a machine with the memory and the
 minutes for them (the primal of one such deck took 400-800 s on an 8-core
 CPU).
@@ -341,6 +358,92 @@ def fd_tables(device, names, chip_smoke) -> None:
         print(json.dumps(rec), flush=True)
 
 
+def dist_references(chip_smoke) -> None:
+    """calibr8_tpu's single-device primal and adjoint on
+    chip_smoke.dist_adjoint_deck() (its own Adjoint with the deck's linear
+    settings, as tests/test_dist.py:154-188 holds it), then its DistPrimal
+    / DistAdjoint at 8 parts on the 8 host devices; one JSON line."""
+    import jax
+    import numpy as np
+
+    from calibr8_tpu.deck import load_deck
+    from calibr8_tpu.parallel.dist import DistAdjoint, DistContext, DistPrimal
+    from calibr8_tpu.problem import Problem
+    from calibr8_tpu.solve.adjoint import Adjoint
+
+    prob = Problem(load_deck(chip_smoke.dist_adjoint_deck()))
+    t0 = time.perf_counter()
+    traj = prob.solve_primal()
+    primal_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    adj = Adjoint(prob.assembler, prob.qoi, prob.dbcs, prob.step_solver.cfg.linear)
+    g0 = np.asarray(adj.sweep(traj, prob.params0, prob.time_grid)[0], dtype=np.float64)
+    adjoint_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx = DistContext(prob, n_parts=8)
+    traj1 = DistPrimal(ctx).run()
+    g1 = np.asarray(DistAdjoint(ctx).sweep(traj1, prob.params0, prob.time_grid)[0],
+                    dtype=np.float64)
+    dist_s = time.perf_counter() - t0
+    scale = float(np.abs(g0).max())
+    print(json.dumps(dict(
+        reference="J_REF_DIST / G_REF_DIST", n_elem=prob.disc.n_elem, n_dofs=prob.disc.n_dofs,
+        J=float(traj.J), grad=g0.tolist(), names=list(prob.model.param_names),
+        dist_J=float(np.sum(traj1["qoi_values"])), dist_grad=g1.tolist(),
+        dist_grad_err=float(np.abs(g1 - g0).max()) / scale, primal_s=primal_s,
+        adjoint_s=adjoint_s, dist_s=dist_s, jax=jax.__version__, cpus=os.cpu_count(),
+    )), flush=True)
+
+
+def dist_tolerance_table(names, chip_smoke) -> None:
+    """The port only, on the card: the full-width decks (bench, hyper) at
+    the deck's Newton tolerance and converged to an absolute 1e-9, 1e-10
+    and 1e-11 (relative test off), each through the single-device
+    Problem.solve_primal and through DistPrimal at 8 parts; one JSON line
+    per run with J against calibr8_tpu's J_REF_*, the Newton and Krylov
+    counts, each linear solve's relative residual and each step's final
+    ||R||."""
+    import copy as _copy
+
+    import numpy as np
+    import torch
+
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.mesh import generators
+    from calibr8_tpu_torch.parallel.dist import DistContext, DistPrimal
+    from calibr8_tpu_torch.problem import Problem
+
+    mesh = generators.cube(32)
+    decks = {"bench": (chip_smoke.bench_deck_32(), chip_smoke.J_REF_N32),
+             "hyper": (chip_smoke.hyper_deck(32), chip_smoke.J_REF_HYPER_N32)}
+    for name in names:
+        base, ref = decks[name]
+        for abs_tol in (None, 1e-9, 1e-10, 1e-11):
+            deck = _copy.deepcopy(base)
+            if abs_tol is not None:
+                gr = deck["residuals"]["global residual"]
+                gr.update({"nonlinear absolute tol": abs_tol, "nonlinear relative tol": 1e-14,
+                           "nonlinear max iters": 40})
+            for parts in (None, 8):
+                prob = Problem(load_deck(_copy.deepcopy(deck)), mesh=mesh, device="cuda",
+                               dtype=torch.float64)
+                t0 = time.perf_counter()
+                if parts is None:
+                    traj = prob.solve_primal()
+                    J, info = traj.J, traj.newton_info
+                else:
+                    traj = DistPrimal(DistContext(prob, n_parts=parts)).run()
+                    J, info = float(np.sum(traj["qoi_values"])), traj["newton_info"]
+                torch.cuda.synchronize()
+                print(json.dumps(dict(
+                    deck=name, newton_abs_tol=abs_tol, parts=parts, J=J, J_ref=ref,
+                    rel_err=abs(J - ref) / ref, newton=[i["iterations"] - 1 for i in info],
+                    krylov=[i["krylov_iters"] for i in info],
+                    relres=[i["linear_relres"] for i in info],
+                    resid_norm=[i["resid_norm"] for i in info],
+                    seconds=time.perf_counter() - t0)), flush=True)
+
+
 def main(argv) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -355,12 +458,23 @@ def main(argv) -> int:
 
         fd_tables(args[1], args[2:] or ["test", "twin"], chip_smoke)
         return 0
+    if args[:1] == ["dist_tol"]:
+        import chip_smoke
+
+        dist_tolerance_table(args[1:] or ["bench", "hyper"], chip_smoke)
+        return 0
+    if args[:1] == ["dist"]:
+        # calibr8_tpu's DistContext takes one part per JAX device
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                                   + " --xla_force_host_platform_device_count=8").strip()
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     import chip_smoke
 
-    if args[:1] == ["adjoint"]:
+    if args[:1] == ["dist"]:
+        dist_references(chip_smoke)
+    elif args[:1] == ["adjoint"]:
         adjoint_references(args[2:] or list(ADJOINT_DECKS), chip_smoke, args[1])
     elif args[:1] == ["mg"]:
         mg_references(args[2:] or list(MG_DECKS), chip_smoke, args[1])

@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero without the result lines:
 
  1. device: the card's name and power limit (nvidia-smi), the torch and
-    CUDA versions, the build of the nine CUDA libraries from
-    calibr8_tpu_torch/csrc with nvcc (one process per source, all in
+    CUDA versions, the build of the nine CUDA libraries (twelve launch
+    counters: 3c on the multigrid levels, 3c per part and 1c count apart)
+    from calibr8_tpu_torch/csrc with nvcc (one process per source, all in
     parallel), with ptxas's register and spill report, and the two
     multigrid meshes refined on the host.
  2. each kernel against its plain PyTorch version, in float32 and
@@ -40,7 +41,19 @@ Phases, in order; any failure exits non-zero without the result lines:
     call (CUDA events around back-to-back calls), the plain version's, a
     one-call PyTorch yardstick where one exists, the least time the card
     could take (bound), and for the implicit kernel the histogram of
-    local Newton iterations.  Then kernel 4, the inverse-trig / float64
+    local Newton iterations.  Then (2b) the domain-decomposed solver's
+    kernels at 8 parts (DistContext, float32 and float64): the
+    element-level entry of the assembly (kernel 1c, assembly_elems: the
+    five libraries reading pre-gathered element columns) on the elements
+    the parts gather, at cube n=32 small_J2, isotropic_elastic, hyper_J2
+    (x_prev), small_hosford and hypo_barlat and notch2D h=0.004 small_J2,
+    small_hill_plane_stress and the hybrid, against its plain version
+    under the same rules and against the single-device entry on the same
+    elements, bit for bit; and 3c per part (part_ell_spmv: every part's
+    local ELL matrix in one launch of ell_spmv.cu's (m, m) instance) on the
+    Jacobians it gives at ndpn 4 (cube n=32, the (4, 4) instance), 3 and 2
+    (notch2D), with the torch.sparse CSR mv of the same block-diagonal
+    matrix.  Then kernel 4, the inverse-trig / float64
     loop probe (csrc/probe.cu): its own entry point, probe.run, with its
     launches counted, against numpy, then against its plain version.
  3. the goldens of tests/decks.py on the card in float64 (cube_elastic,
@@ -66,7 +79,17 @@ Phases, in order; any failure exits non-zero without the result lines:
     h=0.032 refined 3 times (139,008 triangles, small_hill_plane_stress,
     and hypo_hill_plane_stress with Q at 30 degrees);
     every linear solve must reach its tolerance, J within rel 1e-6 of
-    calibr8_tpu's (J_REF_MG_*), 3a and 3c launched.
+    calibr8_tpu's (J_REF_MG_*), 3a and 3c launched.  Then (4c) the
+    domain-decomposed solver through its entry points (DistContext,
+    DistPrimal.run): the bench deck and hyper_deck(32) at 8 parts with
+    Newton converged to an absolute 1e-11 (converged_deck: at the decks'
+    own tolerance J is set only to ~1e-5), J within rel 1e-6 of
+    calibr8_tpu's and within 1e-9 of the port's single-device J at the
+    same tolerance, with the per-part element, owned and ghost counts,
+    Newton and Krylov counts and times; calibr8_tpu's dry-run deck
+    (notch2D h=0.015) at 5 parts, x within 1e-10 (of max|x|) of the
+    port's single-device solve; each must launch assembly_elems and
+    ell_spmv_part.
  5. the adjoint (float64), through AdjointObjective's value and
     gradient: (a) against finite differences, log10 error drop > 6: the
     notch2D small_J2 8-step deck, the hyper_J2_plane_stress and
@@ -82,11 +105,18 @@ Phases, in order; any failure exits non-zero without the result lines:
     cube MG deck with the multigrid transposed solves
     (Adjoint(mg_factory=...)), reuse none and step, every transposed
     solve at its tolerance, within 1e-5 of calibr8_tpu's G_REF_MG, step
-    equal to none to 1e-9.  Launch counts as in phase 4.  (f) the CLI,
+    equal to none to 1e-9.  Launch counts as in phase 4.  (f) the
+    domain-decomposed adjoint: calibr8_tpu's large dist test deck
+    (dist_adjoint_deck, notch2D h=0.0145, GMRES at 1e-13) through
+    DistPrimal and DistAdjoint at 8 parts, dJ/dp within 1e-8 of
+    max|dJ/dp| of calibr8_tpu's single-device G_REF_DIST; then the dist
+    overhead record (bench.py:1096-1150's figure: seconds per GMRES
+    iteration of the dist ELL apply at 1 and 8 parts against the
+    single-device one, cube n=32, no limit).  (g) the CLI,
     `primal` and `inverse` (the gradient check), in this process on the
     two last models' twin cases (cli_decks), exit code 0 and drop > 6.
  6. one JSON line listing every ported kernel (launches: the sum over
-    the runs of phases 4, 4b and 5b-5e; the probe's from its own run), the
+    the runs of phases 4, 4b, 4c and 5b-5f; the probe's from its own run), the
     card's name and power limit, and the `ok` line last.
 
 The script imports nothing of JAX or of calibr8_tpu.  Kernel builds go to
@@ -259,6 +289,15 @@ G_REF_HILL_N32 = {
 #                                      2.1342881372587103e-03, 4.9433022092596444e-03)
 #   adjoint    primal as cube none; transposed solves 51 (step 2), 49 (step 1),
 #              relres 8.9e-10, 6.7e-10 (primal 382.9 s, adjoint 230.7 s)
+# J and dJ/dp (rows: element sets; columns: E, nu, K, Y, cte, delta_T) of
+# dist_adjoint_deck() from calibr8_tpu's single-device primal and Adjoint
+# (JAX 0.9.0, float64, on an 8-core CPU): chip_reference.py dist.  Its
+# DistPrimal / DistAdjoint at 8 parts on 8 host devices gave J
+# 1.818654304812413e-04 and dJ/dp within 9.0e-14 of max|dJ/dp| of these.
+# One elastic load step: dJ/dE is rounding, K, Y, cte and delta_T are 0.
+J_REF_DIST = 1.8186543048123732e-04
+G_REF_DIST = [[-7.754591196146773e-19, -0.00037479841926580157, 0.0, 0.0, 0.0, 0.0]]
+
 J_REF_MG_CUBE = 1.9696969933708677e-03
 J_REF_MG_CUBE_STEP = 1.9696969932754167e-03
 J_REF_MG_NOTCH = 7.077590346518355e-03
@@ -556,6 +595,29 @@ def hybrid_weights():
     return {f"nn_{i}": float(v) for i, v in enumerate(w)}
 
 
+J2_MAT = {"E": 1000.0, "nu": 0.25, "K": 100.0, "Y": 10.0, "cte": 0.0, "delta_T": 0.0}
+
+
+def dist_adjoint_deck() -> dict:
+    """calibr8_tpu's large domain-decomposed test deck
+    (tests/test_dist.py:154-188): notch2D h=0.0145 (>= 10k elements),
+    small_J2, 1 load step, GMRES at 1e-13 with 9,000 iterations so that
+    both the single-device and the dist solves converge."""
+    deck = _deck({"type": "notch2D", "h": 0.0145}, "small_J2", J2_MAT, bcs_2d(0.001), 1)
+    deck["linear algebra"] = {"method": "gmres", "tolerance": 1e-13, "maximum iterations": 9000}
+    return deck
+
+
+def dryrun_deck() -> dict:
+    """The deck of calibr8_tpu's multi-device dry run
+    (__graft_entry__.py:29-65,97-130): notch2D h=0.015, small_J2, 2 load
+    steps, Newton at 15 iterations, the default linear algebra."""
+    deck = _deck({"type": "notch2D", "h": 0.015}, "small_J2", J2_MAT, bcs_2d(0.001), 2)
+    deck["residuals"]["global residual"]["nonlinear max iters"] = 15
+    deck["residuals"]["local residual"]["nonlinear max iters"] = 200
+    return deck
+
+
 def mg_cube_deck(reuse: str = "none") -> dict:
     """The bench deck on cube n=4 refined 3 times (196,608 tets, the
     bench's scale; nodes 125 / 729 / 4,913 / 35,937 down the chain),
@@ -744,6 +806,18 @@ KERNELS = {
     # (calibr8_tpu_torch.probe.run), not a solver path
     "probe": ("calibr8_tpu_torch/csrc/probe.cu",
               "scripts/probe_mosaic_trig.py:51 and scripts/probe_mosaic_f64.py:64"),
+    # kernel 1c: the element-level entry of the assembly (null edofs_T, the
+    # kernels read pre-gathered element columns; c8_element.cuh elem_dof),
+    # launched by the domain-decomposed solver; the line carries cube n=32
+    # small_J2's figures (fused_assembly.cu) and, in entries named by case,
+    # those of the other four libraries, launches from the dist phases
+    "assembly_elems": ("calibr8_tpu_torch/csrc/fused_assembly.cu",
+                       "calibr8_tpu/fem/pallas_assembly.py:529-543"),
+    # kernel 3c per part: every part's local ELL matrix in one launch of
+    # ell_spmv.cu's (m, m) instance; the line carries cube n=32's (4, 4),
+    # ndpn 3 and 2 in entries named by case
+    "ell_spmv_part": ("calibr8_tpu_torch/csrc/ell_spmv.cu",
+                      "calibr8_tpu/solve/ellpack.py:491 via calibr8_tpu/parallel/dist.py:462"),
 }
 LEVEL_TIMED = "cube MG fine p block (m=1, 35937 nodes)"
 ISO_TIMED = "cube n=32 isotropic_elastic"
@@ -910,21 +984,75 @@ def phase_kernels(mesh, results):
     return ok
 
 
-def check_fused(prob, x, xi_prev, results, key):
+def elem_inputs(prob, x, x_prev, xi_prev, ctx=None):
+    """The arrays the assembly kernels read, in the element-level entry's
+    form (assembly_elems' keyword arguments): the Disc's elements gathered
+    (ctx None), or the elements of every part of DistContext ctx as the
+    dist assembly gathers them, pads included (their local state the
+    model's initial one)."""
+    disc, bm = prob.disc, prob.assembler.bmodel
+    if ctx is None:
+        return dict(x_eT=x[disc.edofs].T, xp_eT=None if x_prev is None else x_prev[disc.edofs].T,
+                    xi_prev_T=xi_prev.T, gN_T=disc.gN_T, detJ=disc.detJ, h=disc.h,
+                    params_all=prob.params0, es_ids=disc.es_ids32)
+    init = torch.as_tensor(prob.model.init_xi(), dtype=disc.dtype, device=disc.device)
+    xid = ctx.to_dist_elem(xi_prev, fill=init)
+    return dict(x_eT=ctx._gather_eT(ctx.to_dist(x)),
+                xp_eT=None if x_prev is None else ctx._gather_eT(ctx.to_dist(x_prev)),
+                xi_prev_T=xid.reshape(-1, bm.nxi).T, gN_T=ctx.gN_T, detJ=ctx.detJ, h=ctx.h,
+                params_all=prob.params0, es_ids=ctx.es32)
+
+
+def equal_single_device(ctx, out_e, out_s):
+    """The element-level entry's outputs on the parts' real elements
+    against the single-device entry's on the same elements: (bit for bit
+    equal, max |difference| of R, J, xi)."""
+    cols = ctx._emask_t
+    elems = ctx._esel_t[cols]
+    pairs = [(a[..., cols], b[..., elems]) for a, b in zip(out_e, out_s)]
+    # NaN lanes (the float32 eigensolver twins') equal where both are NaN
+    same = all(bool(((a == b) | (a.isnan() & b.isnan())).all()) for a, b in pairs)
+    diff = max(float((a.double() - b.double()).abs().nan_to_num(0.0).max()) for a, b in pairs[:3])
+    return same, diff
+
+
+def check_fused(prob, x, xi_prev, results, key, ctx=None):
     """Kernel 1a (the analytic fused assembly) against its plain version on
     prob's Disc and state, in prob's dtype: errors of R, J and xi over
     max|plain|, path mismatches, time, the plain version's and the bound.
+    With a DistContext ctx, the element-level entry (kernel 1c,
+    assembly_elems) on the elements of its parts instead, and against the
+    single-device entry on the same elements, bit for bit.
     Returns (ok, the kernel's outputs)."""
-    from calibr8_tpu_torch.fem.fused_assembly import fused_assembly, fused_assembly_plain
+    from calibr8_tpu_torch.fem.fused_assembly import (
+        assembly_elems, assembly_elems_plain, fused_assembly, fused_assembly_plain,
+    )
 
     disc, bm, P = prob.disc, prob.assembler.bmodel, prob.params0
     dn = str(disc.dtype).split(".")[1]
     w = 4 if disc.dtype == torch.float32 else 8
-    E, nde, n_dofs = disc.n_elem, disc.spec.ndofs_elem, disc.n_dofs
+    nde, n_dofs = disc.spec.ndofs_elem, disc.n_dofs
     npe, d, nxi = disc.spec.npe, disc.spec.dim, bm.nxi
     lim = LIMITS[dn]
-    out_k = fused_assembly(disc, bm, x, xi_prev, P)
-    out_p = fused_assembly_plain(disc, bm, x, xi_prev, P)
+    if ctx is None:
+        E = disc.n_elem
+
+        def kern():
+            return fused_assembly(disc, bm, x, xi_prev, P)
+
+        def plain():
+            return fused_assembly_plain(disc, bm, x, xi_prev, P)
+    else:
+        el = elem_inputs(prob, x, None, xi_prev, ctx)
+        E = el["x_eT"].shape[1]
+
+        def kern():
+            return assembly_elems(disc.spec, bm, **el)
+
+        def plain():
+            return assembly_elems_plain(disc.spec, bm, **el)
+    out_k = kern()
+    out_p = plain()
     torch.cuda.synchronize()
     errs = {}
     for name, a, b in zip(("R", "J", "xi"), out_k[:3], out_p[:3]):
@@ -932,13 +1060,16 @@ def check_fused(prob, x, xi_prev, results, key):
     path_mism = int((out_k[3] != out_p[3]).sum())
     n_plastic = int(out_p[3].sum())
     worst = max(e[0] for e in errs.values())
-    ms = time_ms(lambda: fused_assembly(disc, bm, x, xi_prev, P), 20)
-    pms = time_ms(lambda: fused_assembly_plain(disc, bm, x, xi_prev, P), 2, rounds=1)
+    ms = time_ms(kern, 20)
+    pms = time_ms(plain, 2, rounds=1)
     # bytes: every input the function needs read once, every output
-    # written once; h only for the mixed rows' stabilization, xi_prev not
-    # for the elastic models, whose local solve sets xi = 0 without it
+    # written once (the element-level entry reads the gathered element
+    # columns instead of x and edofs_T); h only for the mixed rows'
+    # stabilization, xi_prev not for the elastic models, whose local solve
+    # sets xi = 0 without it
     reads_xi_prev = bm.name not in ("elastic", "isotropic_elastic")
-    nbytes = (n_dofs * w + nde * E * 4 + reads_xi_prev * E * nxi * w + npe * d * E * w
+    nbytes = ((nde * E * w if ctx is not None else n_dofs * w + nde * E * 4)
+              + reads_xi_prev * E * nxi * w + npe * d * E * w
               + (1 + disc.spec.mixed) * E * w + P.numel() * w + E * 4 + nde * E * w
               + nde * nde * E * w + nxi * E * w + 2 * E * 4)
     # counted operations: only the Jacobian contraction of the d*d
@@ -947,15 +1078,25 @@ def check_fused(prob, x, xi_prev, results, key):
     b_ms, b_by = bound(nbytes, flops, dn)
     good = (worst <= lim and not path_mism
             and all(bool(torch.isfinite(t).all()) for t in out_k[:3]))
-    rec = dict(kernel="fused_assembly", model=bm.name, mixed=disc.spec.mixed, nde=nde, dtype=dn,
-               rel_err={k: v[0] for k, v in errs.items()},
+    extra = {}
+    if ctx is not None:
+        def single():
+            return fused_assembly(disc, bm, x, xi_prev, P)
+
+        same, diff = equal_single_device(ctx, out_k, single())
+        # the single-device entry's time on the same elements, in this call
+        extra = dict(parts=ctx.part.n_parts, equal_single_device=same, single_device_diff=diff,
+                     single_device_ms=time_ms(single, 20))
+        good = good and same
+    rec = dict(kernel="fused_assembly" if ctx is None else "assembly_elems", model=bm.name,
+               mixed=disc.spec.mixed, nde=nde, dtype=dn, rel_err={k: v[0] for k, v in errs.items()},
                max_abs_err=max(e[1] for e in errs.values()), path_mismatch=path_mism,
-               plastic=n_plastic, elements=E, ms=ms, plain_ms=pms, library_ms=None,
+               plastic=n_plastic, elements=E, **extra, ms=ms, plain_ms=pms, library_ms=None,
                bound_ms=b_ms, bound_by=b_by, limit=lim, ok=good)
     log(json.dumps(rec))
     if not good:
-        log(f"FAIL fused_assembly {bm.name} {dn}: rel err {worst:.3e} (limit {lim:.0e}), "
-            f"path mismatches {path_mism}")
+        log(f"FAIL {rec['kernel']} {bm.name} {dn}: rel err {worst:.3e} (limit {lim:.0e}), "
+            f"path mismatches {path_mism}, {extra}")
     results[key] = rec
     return good, out_k
 
@@ -1160,10 +1301,11 @@ CLIP_SENSITIVE = 1e-12
 EIG_NONFINITE_SHARE = 1e-3
 
 
-def worst_elements(bm, out_k, out_p, x, x_prev, xi_prev, P, disc, iters, iters_p, n=5):
+def worst_elements(bm, out_k, out_p, el, spec, iters, iters_p, n=5):
     """The n elements with the largest |J_kernel - J_plain| (over max|J|):
     that error, 1 - |r| in each version, the local counts, the path and
-    the condition number of dC/dxi at the plain version's state."""
+    the condition number of dC/dxi at the plain version's state; `el` the
+    element arrays of elem_inputs."""
     from calibr8_tpu_torch.mechanics.global_residual import elem_kinematics
     from calibr8_tpu_torch.models.batched import jvp_columns
 
@@ -1172,11 +1314,11 @@ def worst_elements(bm, out_k, out_p, x, x_prev, xi_prev, P, disc, iters, iters_p
     err = torch.where(fin, (Jk - Jp).abs().amax((0, 1)), torch.zeros_like(Jk[0, 0]))
     err = err / Jp[..., fin].abs().max()
     idx = err.topk(n).indices
-    gu = elem_kinematics(disc.spec, x[disc.edofs[idx]].T, disc.gN_T[..., idx])
-    gup = None if x_prev is None else elem_kinematics(disc.spec, x_prev[disc.edofs[idx]].T,
-                                                      disc.gN_T[..., idx])
-    parT = P[disc.es_ids[idx]].T
-    xiT, xipT, path = out_p[2][:, idx], xi_prev[idx].T, out_p[3][idx]
+    gN = el["gN_T"][..., idx]
+    gu = elem_kinematics(spec, el["x_eT"][:, idx], gN)
+    gup = None if el["xp_eT"] is None else elem_kinematics(spec, el["xp_eT"][:, idx], gN)
+    parT = el["params_all"][el["es_ids"][idx].long()].T
+    xiT, xipT, path = out_p[2][:, idx], el["xi_prev_T"][:, idx], out_p[3][idx]
     _, cols = jvp_columns(lambda z: bm.residual(z, xipT, gu, parT, path, gup), xiT)
     cond = torch.linalg.cond(cols.permute(2, 1, 0).double())
     omr = [eig_one_minus_r(bm, o[2][:, idx], gu, parT) for o in (out_k, out_p)]
@@ -1205,27 +1347,46 @@ def eig_one_minus_r(bm, xiT, gu, parT):
         tuple(parT[k0 + k] for k in range(9)), flat))) for k0 in (7, 16)))
 
 
-def check_implicit(label, prob, scale, results):
+def check_implicit(label, prob, scale, results, ctx=None):
     """The implicit assembly against its plain version on prob's Disc, in
-    prob's dtype; records (and returns) the check."""
+    prob's dtype; records (and returns) the check.  With a DistContext
+    ctx, the element-level entry (kernel 1c, assembly_elems) on the
+    elements of its parts instead, and against the single-device entry
+    on the same elements, bit for bit."""
     from calibr8_tpu_torch.fem.fused_assembly import (
-        IMPLICIT_LIB, fused_assembly_plain, implicit_assembly,
+        IMPLICIT_LIB, assembly_elems, assembly_elems_plain, fused_assembly_plain,
+        implicit_assembly,
     )
     from calibr8_tpu_torch.mechanics.global_residual import elem_kinematics
 
     disc, bm = prob.disc, prob.assembler.bmodel
-    kname = IMPLICIT_LIB.get(bm.name, ("implicit_assembly",))[0]
+    kname = ("assembly_elems" if ctx is not None
+             else IMPLICIT_LIB.get(bm.name, ("implicit_assembly",))[0])
     eig = getattr(bm, "freeze_path", False)
     dn = str(disc.dtype).split(".")[1]
     w = 4 if disc.dtype == torch.float32 else 8
     spec = disc.spec
-    E, nde, npe, d, nxi = disc.n_elem, spec.ndofs_elem, spec.npe, spec.dim, bm.nxi
+    nde, npe, d, nxi = spec.ndofs_elem, spec.npe, spec.dim, bm.nxi
     x, x_prev, xi_prev = implicit_inputs(prob, scale)
     P = prob.params0
+    el = elem_inputs(prob, x, x_prev, xi_prev, ctx)
+    E = el["x_eT"].shape[1]
+
+    def kern(iters=None):
+        if ctx is None:
+            return implicit_assembly(disc, bm, x, xi_prev, P, newton_iters=iters, x_prev=x_prev)
+        return assembly_elems(spec, bm, **el, newton_iters=iters)
+
+    def plain(iters=None):
+        if ctx is None:
+            return fused_assembly_plain(disc, bm, x, xi_prev, P, x_prev=x_prev,
+                                        newton_iters=iters)
+        return assembly_elems_plain(spec, bm, **el, newton_iters=iters)
+
     iters = torch.zeros(E, dtype=torch.int32, device=DEVICE)
     iters_p = torch.zeros_like(iters)
-    out_k = implicit_assembly(disc, bm, x, xi_prev, P, newton_iters=iters, x_prev=x_prev)
-    out_p = fused_assembly_plain(disc, bm, x, xi_prev, P, x_prev=x_prev, newton_iters=iters_p)
+    out_k = kern(iters)
+    out_p = plain(iters_p)
     torch.cuda.synchronize()
     hist = torch.bincount(iters.long(), minlength=bm.newton_iters + 1).tolist()
     same_path = out_k[3] == out_p[3]
@@ -1249,10 +1410,10 @@ def check_implicit(label, prob, scale, results):
     eig_rec = {}
     jlim = None
     if eig:
-        gu = elem_kinematics(spec, x[disc.edofs].T, disc.gN_T)
-        gup = None if x_prev is None else elem_kinematics(spec, x_prev[disc.edofs].T, disc.gN_T)
-        parT = P[disc.es_ids].T
-        xi0 = bm.first_guess(xi_prev.T, gu, parT, gup)
+        gu = elem_kinematics(spec, el["x_eT"], el["gN_T"])
+        gup = None if x_prev is None else elem_kinematics(spec, el["xp_eT"], el["gN_T"])
+        parT = P[el["es_ids"].long()].T
+        xi0 = bm.first_guess(el["xi_prev_T"], gu, parT, gup)
         omr = torch.fmin(torch.fmin(eig_one_minus_r(bm, out_k[2], gu, parT),
                                     eig_one_minus_r(bm, out_p[2], gu, parT)),
                          eig_one_minus_r(bm, xi0, gu, parT))
@@ -1300,14 +1461,26 @@ def check_implicit(label, prob, scale, results):
     ok = ok and max(fails) <= MAX_FAILED_SHARE * E
     if not eig:
         ok = ok and all(bool(torch.isfinite(t[..., converged]).all()) for t in out_k[:3])
-    ms = time_ms(lambda: implicit_assembly(disc, bm, x, xi_prev, P, x_prev=x_prev), 10)
-    pms = time_ms(lambda: fused_assembly_plain(disc, bm, x, xi_prev, P, x_prev=x_prev), 1,
-                  rounds=1)
+    extra = {}
+    if ctx is not None:
+        def single():
+            return implicit_assembly(disc, bm, x, xi_prev, P, x_prev=x_prev)
+
+        same, diff = equal_single_device(ctx, out_k, single())
+        # the single-device entry's time on the same elements, in this call
+        extra = dict(parts=ctx.part.n_parts, equal_single_device=same, single_device_diff=diff,
+                     single_device_ms=time_ms(single, 10))
+        ok = ok and same
+    ms = time_ms(kern, 10)
+    pms = time_ms(plain, 1, rounds=1)
     # bytes: every input read once (x_prev too where the twin reads it, h
-    # only for the mixed rows' stabilization), every output written once
-    nbytes = ((1 if x_prev is None else 2) * disc.n_dofs * w + nde * E * 4 + E * nxi * w
-              + npe * d * E * w + (1 + spec.mixed) * E * w + P.numel() * w + E * 4
-              + nde * E * w + nde * nde * E * w + nxi * E * w + 2 * E * 4)
+    # only for the mixed rows' stabilization; the element-level entry reads
+    # the gathered element columns instead of x and edofs_T), every output
+    # written once
+    n_x = 1 if x_prev is None else 2
+    nbytes = ((n_x * nde * E * w if ctx is not None else n_x * disc.n_dofs * w + nde * E * 4)
+              + E * nxi * w + npe * d * E * w + (1 + spec.mixed) * E * w + P.numel() * w
+              + E * 4 + nde * E * w + nde * nde * E * w + nxi * E * w + 2 * E * 4)
     # operations counted from c8_implicit.cuh, a lower bound: the small
     # solves (one per Newton update this run's data needed, one for the
     # condensation), the condensed rows K and the contraction with grad_N;
@@ -1318,8 +1491,8 @@ def check_implicit(label, prob, scale, results):
     b_ms, b_by = bound(nbytes, flops, dn)
     worst = []
     if eig:
-        worst = worst_elements(bm, out_k, out_p, x, x_prev, xi_prev, P, disc, iters, iters_p)
-    rec = dict(kernel=kname, case=label, dtype=dn,
+        worst = worst_elements(bm, out_k, out_p, el, spec, iters, iters_p)
+    rec = dict(kernel=kname, case=label, dtype=dn, **extra,
                rel_err={k: v[0] for k, v in errs.items()},
                max_abs_err=max(e[1] for e in (*errs.values(), *apart_err.values())),
                nonfinite=(int(nf_k.sum()), int(nf_p.sum())), **eig_rec, worst_J=worst,
@@ -1420,6 +1593,24 @@ def IMPLICIT_CASES(meshes):
 OPERATOR_CASES = ("notch2D h=0.004 small_hill_plane_stress", "notch2D h=0.004 hyper_J2_plane_strain")
 
 
+def deck_in(deck, dtype):
+    """A copy of deck for the kernel checks in `dtype`: in float32 the
+    implicit twins' local tolerance is raised.  float32 cannot reach the
+    decks' local tolerance of 1e-12: converged plastic lanes then flip
+    branch on rounding noise until the 16-iteration cap, and the two
+    versions end in different states.  At 1e-6 they converge; a lane whose
+    ||C|| lands within rounding of the tolerance stops one iteration apart
+    in the two, a difference of one step below 1e-6 (at bench.py's float32
+    1e-5 that step can exceed this check's limit; PERF.md has the runs)."""
+    deck_t = copy.deepcopy(deck)
+    if dtype == torch.float32:
+        lr = deck_t["residuals"]["local residual"]
+        lr["nonlinear absolute tol"] = (F32_LOCAL_TOL_FINITE
+                                        if lr["type"].startswith(("hyper", "hypo", "hybrid"))
+                                        else F32_LOCAL_TOL)
+    return deck_t
+
+
 def phase_implicit(meshes, results):
     """Phase 2, implicit assembly: the full-width Hill and hyper_J2 decks'
     shapes, float32 and float64, and the EBE / ELL kernels at the notch2D
@@ -1430,21 +1621,7 @@ def phase_implicit(meshes, results):
     ok = True
     for label, deck, mesh, scale in IMPLICIT_CASES(meshes):
         for dtype in (torch.float32, torch.float64):
-            deck_t = copy.deepcopy(deck)
-            if dtype == torch.float32:
-                # float32 cannot reach the decks' local tolerance of 1e-12:
-                # converged plastic lanes then flip branch on rounding
-                # noise until the 16-iteration cap, and the two versions
-                # end in different states.  At 1e-6 they converge; a lane
-                # whose ||C|| lands within rounding of the tolerance stops
-                # one iteration apart in the two, a difference of one
-                # step below 1e-6 (at bench.py's float32 1e-5 that step
-                # can exceed this check's limit; PERF.md has the runs).
-                lr = deck_t["residuals"]["local residual"]
-                lr["nonlinear absolute tol"] = (F32_LOCAL_TOL_FINITE
-                                                if lr["type"].startswith(("hyper", "hypo", "hybrid"))
-                                                else F32_LOCAL_TOL)
-            prob = Problem(load_deck(deck_t), mesh=mesh, device=DEVICE, dtype=dtype)
+            prob = Problem(load_deck(deck_in(deck, dtype)), mesh=mesh, device=DEVICE, dtype=dtype)
             good, J_T = check_implicit(label, prob, scale, results)
             ok &= good
             if label in OPERATOR_CASES:
@@ -1876,6 +2053,368 @@ def phase_level_kernels(meshes, results):
     return ok
 
 
+# the domain-decomposed solver's phases: 8 parts, as calibr8_tpu's tests
+# (tests/conftest.py's 8 host devices)
+DIST_PARTS = 8
+
+
+def notch_j2_deck(h: float) -> dict:
+    """notch2D at h, small_J2 (2D mixed u/p, ndpn 3), 2 load steps."""
+    return _deck({"type": "notch2D", "h": h}, "small_J2", J2_MAT, bcs_2d(0.001), 2)
+
+
+F32, F64 = torch.float32, torch.float64
+
+
+def DIST_KERNEL_CASES(meshes):
+    """(label, deck, mesh, deformation scale or None for the analytic twins'
+    bench state, the dtypes of the element-level entry's check, whether 3c
+    per part is held on its Jacobians) of phase 2b: every assembly library
+    at the shapes of a full-width deck, the part apply at ndpn 4, 3 and 2.
+    notch2D h=0.004 small_J2 gives 3c's ndpn-3 Jacobians in float64 (3c's
+    float32 check takes them rounded, as check_level_apply does): its
+    float32 state is beyond the float32 limit of check_fused, since grad_u
+    from nodal displacements of ~0.02 that differ by ~1e-4 across an
+    element keeps ~2.3 fewer digits than the displacements (kernel and
+    plain version, in either entry, 3.0e-5 of max|J| apart; PERF.md has
+    the run)."""
+    return (
+        ("cube n=32 small_J2", bench_deck_32(), meshes["cube32"], None, (F32, F64), True),
+        ("cube n=32 isotropic_elastic", iso_deck(32), meshes["cube32"], None, (F32, F64), False),
+        ("cube n=32 hyper_J2", hyper_deck(32), meshes["cube32"], 0.02, (F32, F64), False),
+        ("cube n=32 small_hosford", eig_deck("small_hosford", 32), meshes["cube32"], 0.02,
+         (F32, F64), False),
+        ("cube n=32 hypo_barlat", eig_deck("hypo_barlat", 32), meshes["cube32"], 0.02, (F32, F64),
+         False),
+        ("notch2D h=0.004 small_J2", notch_j2_deck(0.004), meshes["notch004"], None, (F64,), True),
+        ("notch2D h=0.004 small_hill_plane_stress", plane_stress_deck(0.004), meshes["notch004"],
+         0.01, (F32, F64), True),
+        (HYBRID_TIMED, hybrid_deck(0.004), meshes["notch004"], 0.01, (F32, F64), False),
+    )
+
+
+def bench_deck_32():
+    from calibr8_tpu_torch.profile_primal import bench_deck
+
+    return bench_deck(32)
+
+
+def check_part_apply(label, ctx, J_T, results):
+    """Kernel 3c per part (part_ell_spmv: every part's local ELL matrix in
+    one launch) against its plain version on the parts' matrices of the
+    element Jacobians J_T, in J_T's dtype, with its time, bound (the
+    filled slots' blocks, nbr_T and the vectors) and the torch.sparse CSR
+    mv of the same block-diagonal matrix."""
+    from calibr8_tpu_torch.solve.ellpack import part_ell_spmv, part_ell_spmv_plain
+
+    dn = str(J_T.dtype).split(".")[1]
+    w = 4 if J_T.dtype == torch.float32 else 8
+    lim = LIMITS[dn]
+    A_T = ctx.ell_assemble(J_T)
+    K, m, _, PN = A_T.shape
+    nbr_T = ctx.nbr_T
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    x = torch.randn(ctx.part.n_parts, ctx.part.N_loc, m, generator=gen, device=DEVICE,
+                    dtype=J_T.dtype)
+    yp = part_ell_spmv_plain(A_T, nbr_T, x, m)
+    err, aerr = rel_err(part_ell_spmv(A_T, nbr_T, x, m), yp)
+    csr, nnz_slots = ell_csr(A_T, nbr_T, m, PN * m)
+    xf = x.reshape(-1)
+    lms = time_ms(lambda: torch.mv(csr, xf), 30)
+    err_lib = rel_err(torch.mv(csr, xf).view_as(yp), yp)[0]
+    del csr
+    nbytes = nnz_slots * m * m * w + K * PN * 4 + 2 * PN * m * w
+    b_ms, b_by = bound(nbytes, 2.0 * m * m * nnz_slots, dn)
+    good = err <= lim
+    rec = dict(kernel="ell_spmv_part", case=label, dtype=dn, parts=ctx.part.n_parts, m=m, K=K,
+               nodes=PN, filled_slots=nnz_slots, rel_err=err, max_abs_err=aerr,
+               ms=time_ms(lambda: part_ell_spmv(A_T, nbr_T, x, m), 30),
+               plain_ms=time_ms(lambda: part_ell_spmv_plain(A_T, nbr_T, x, m), 10),
+               library_ms=lms, library_rel_err=err_lib, bound_ms=b_ms, bound_by=b_by, limit=lim,
+               ok=good)
+    log(json.dumps(rec))
+    if not good:
+        log(f"FAIL ell_spmv_part {label} {dn}: rel err {err:.3e} (limit {lim:.0e})")
+    results[("ell_spmv_part", label, dn)] = rec
+    return good
+
+
+def phase_dist_kernels(meshes, results):
+    """Phase 2, the domain-decomposed solver's kernels at DIST_PARTS parts,
+    float32 and float64: the element-level entry (kernel 1c,
+    assembly_elems) of each assembly library on the elements the
+    DistContext gathers, against its plain version under check_fused /
+    check_implicit's rules and against the single-device entry on the
+    same elements, bit for bit; 3c per part on the Jacobians it gives at
+    ndpn 4, 3 and 2."""
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.parallel.dist import DistContext
+    from calibr8_tpu_torch.problem import Problem
+
+    ok = True
+    for label, deck, mesh, scale, dtypes, part_apply in DIST_KERNEL_CASES(meshes):
+        for dtype in dtypes:
+            dn = str(dtype).split(".")[1]
+            deck_t = copy.deepcopy(deck) if scale is None else deck_in(deck, dtype)
+            prob = Problem(load_deck(deck_t), mesh=mesh, device=DEVICE, dtype=dtype)
+            t0 = time.perf_counter()
+            ctx = DistContext(prob, n_parts=DIST_PARTS)
+            log(json.dumps(dict(dist_context=label, dtype=dn, setup_s=time.perf_counter() - t0,
+                                **part_sizes(ctx))))
+            if scale is None:
+                x, xi_prev = representative_state(prob)
+                good, out_k = check_fused(prob, x, xi_prev, results,
+                                          ("assembly_elems", label, dn), ctx=ctx)
+                J_T = out_k[1]
+            else:
+                good, J_T = check_implicit(label, prob, scale, results, ctx=ctx)
+            ok &= good
+            if part_apply:
+                # in each dtype of 3c's check, from this dtype's Jacobians
+                # where the entry ran in it, else rounded
+                for dt in ((F32, F64) if dtypes == (F64,) else (dtype,)):
+                    ok &= check_part_apply(label, ctx, J_T.to(dt).contiguous(), results)
+            del prob, ctx, J_T
+            torch.cuda.empty_cache()
+    return ok
+
+
+def part_sizes(ctx) -> dict:
+    """Per-part element, owned-node and ghost-node counts of a DistContext."""
+    part = ctx.part
+    return dict(parts=part.n_parts, E_loc=part.E_loc, N_own=part.N_own, N_loc=part.N_loc,
+                H=part.H, K_ell=part.K_ell,
+                elements_per_part=(part.elems >= 0).sum(1).tolist(),
+                owned_per_part=part.n_own.tolist(),
+                ghosts_per_part=(part.local_nodes[:, part.N_own:] >= 0).sum(1).tolist())
+
+
+# Newton's tolerances of the full-width dist runs.  At the decks' own (1e-8,
+# absolute or relative to the first residual) a load step's J is set only
+# to ~1e-5: the loosely solved linear systems (GMRES + block GS at its
+# cap) make Newton converge linearly, and it stops just under the
+# tolerance, so two correct solvers that take other Krylov paths land
+# apart by that much (the dist path's J was 8.7e-6 from calibr8_tpu's on
+# cube n=32 hyper_J2, 2.5e-7 on the bench deck).  Converged to an absolute
+# 1e-11, the port's dist and single-device J agree to 4e-11 / 7e-11 and lie
+# 7.2e-7 / 1.4e-7 from calibr8_tpu's (its own Newton error at the decks'
+# tolerance; PERF.md has the runs).
+DIST_NEWTON_ABS_TOL = 1e-11
+DIST_SINGLE_LIMIT = 1e-9
+
+
+def converged_deck(deck):
+    """A copy of deck whose Newton stops at DIST_NEWTON_ABS_TOL, absolute
+    only."""
+    deck = copy.deepcopy(deck)
+    gr = deck["residuals"]["global residual"]
+    gr["nonlinear absolute tol"] = DIST_NEWTON_ABS_TOL
+    gr["nonlinear relative tol"] = 1e-14
+    gr["nonlinear max iters"] = 40
+    return deck
+
+
+def phase_dist_primal(label, deck, mesh, n_parts, J_ref, needed, single=None,
+                      single_limit=None):
+    """Phase dist: one DistPrimal run through the port's entry points
+    (Problem, DistContext, DistPrimal.run) at n_parts parts, float64.
+    Returns (ok, launch counts of the run alone, the problem, context and
+    trajectory): ok needs J within rel 1e-6 of J_ref (when given), within
+    rel `single_limit` of `single` (the port's single-device J of the same
+    deck, recorded beside it) when that is given, and every kernel of
+    `needed` launched."""
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.parallel.dist import DistContext, DistPrimal
+    from calibr8_tpu_torch.problem import Problem
+    from calibr8_tpu_torch.utils import timers
+
+    prob = Problem(load_deck(copy.deepcopy(deck)), mesh=mesh, device=DEVICE, dtype=torch.float64)
+    t0 = time.perf_counter()
+    ctx = DistContext(prob, n_parts=n_parts)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    timers.reset()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    traj = DistPrimal(ctx).run()
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    J = float(np.sum(traj["qoi_values"]))
+    rel = abs(J - J_ref) / abs(J_ref) if J_ref is not None else None
+    steps = [dict(step=i + 1, newton_iterations=info["iterations"] - 1,
+                  krylov_iterations=info["krylov_iters"], resid_norm=info["resid_norm"],
+                  seconds=info["seconds"], J_step=traj["qoi_values"][i])
+             for i, info in enumerate(traj["newton_info"])]
+    summ = timers.summary()
+    rel_single = None if single is None else abs(J - single) / abs(single)
+    rec = dict(dist=label, n_elem=prob.disc.n_elem, n_dofs=prob.disc.n_dofs, **part_sizes(ctx),
+               J=J, J_ref=J_ref, rel_err=rel, J_single_device=single,
+               rel_err_single_device=rel_single, single_device_limit=single_limit,
+               steps=steps, context_setup_s=setup_s, solve_s=solve_s,
+               phases={k: dict(count=v["count"], total_s=v["total"]) for k, v in summ.items()},
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+    log(json.dumps(rec))
+    ok = ((rel is None or rel <= 1e-6) and (single_limit is None or rel_single <= single_limit)
+          and all(counts[k] > 0 for k in needed))
+    if not ok:
+        log(f"FAIL dist {label}: J rel err {rel} (limit 1e-6), against the single-device J "
+            f"{rel_single} (limit {single_limit}), launches {counts}")
+    return ok, counts, prob, ctx, traj
+
+
+def phase_dist_full_width(label, deck, mesh, J_ref, needed):
+    """Phase dist: a full-width deck converged to DIST_NEWTON_ABS_TOL,
+    first through the port's single-device Problem.solve_primal (a
+    reference, not the main path: its launches are not counted), then
+    through DistPrimal at DIST_PARTS parts, J within rel 1e-6 of
+    calibr8_tpu's J_ref and within DIST_SINGLE_LIMIT of the single-device
+    J.  Returns (ok, the dist run's launch counts, the single-device J)."""
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.problem import Problem
+
+    deck = converged_deck(deck)
+    t0 = time.perf_counter()
+    traj = Problem(load_deck(copy.deepcopy(deck)), mesh=mesh, device=DEVICE,
+                   dtype=torch.float64).solve_primal()
+    torch.cuda.synchronize()
+    log(json.dumps(dict(single_device=label.split(",")[0], newton_abs_tol=DIST_NEWTON_ABS_TOL,
+                        J=traj.J, J_ref=J_ref, rel_err=abs(traj.J - J_ref) / abs(J_ref),
+                        newton_iterations=[i["iterations"] - 1 for i in traj.newton_info],
+                        resid_norm=[i["resid_norm"] for i in traj.newton_info],
+                        seconds=time.perf_counter() - t0)))
+    ok, counts, *_ = phase_dist_primal(label, deck, mesh, DIST_PARTS, J_ref, needed,
+                                       single=traj.J, single_limit=DIST_SINGLE_LIMIT)
+    return ok, counts, traj.J
+
+
+def phase_dist_parity(meshes):
+    """Phase dist: the dry run's deck (notch2D h=0.015, calibr8_tpu's
+    dryrun_multichip) at 5 parts, a count that is not a power of two:
+    DistPrimal's x within 1e-10 (max|x| scaled, as tests/test_dist.py
+    holds calibr8_tpu) of the port's single-device solve."""
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.problem import Problem
+
+    deck = dryrun_deck()
+    t0 = time.perf_counter()
+    traj0 = Problem(load_deck(copy.deepcopy(deck)), device=DEVICE,
+                    dtype=torch.float64).solve_primal()
+    single_s = time.perf_counter() - t0
+    ok, counts, prob, ctx, traj = phase_dist_primal("notch2D h=0.015 small_J2 (dry run), 5 parts",
+                                                    deck, None, 5, None,
+                                                    ["assembly_elems", "ell_spmv_part"],
+                                                    single=traj0.J)
+    x0, x1 = traj0.x[-1], ctx.from_dist(traj["x"][-1])
+    scale = float(x0.abs().max())
+    err = float((x1 - x0).abs().max())
+    good = err <= 1e-10 * max(scale, 1.0)
+    log(json.dumps(dict(dist_parity="notch2D h=0.015, 5 parts", x_max_abs_err=err, x_max=scale,
+                        limit=1e-10 * max(scale, 1.0), single_device_solve_s=single_s,
+                        ok=good)))
+    if not good:
+        log(f"FAIL dist parity: max |x_dist - x_single| {err:.3e}")
+    return ok and good, counts
+
+
+def phase_dist_adjoint():
+    """Phase dist adjoint: calibr8_tpu's large dist test deck
+    (dist_adjoint_deck, notch2D h=0.0145 small_J2, GMRES at 1e-13) at
+    DIST_PARTS parts through DistPrimal and DistAdjoint: J within rel 1e-6
+    of calibr8_tpu's J_REF_DIST, dJ/dp within 1e-8 of max|dJ/dp| of its
+    single-device G_REF_DIST, every transposed solve at relres <= 0.5."""
+    from calibr8_tpu_torch.parallel.dist import DistAdjoint
+    from calibr8_tpu_torch.utils import timers
+
+    ok, counts, prob, ctx, traj = phase_dist_primal(
+        "notch2D h=0.0145 small_J2 (adjoint deck)", dist_adjoint_deck(), None, DIST_PARTS,
+        J_REF_DIST, ["assembly_elems", "ell_spmv_part"])
+    from calibr8_tpu_torch import kernels
+
+    timers.reset()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    adj = DistAdjoint(ctx)
+    grad, _ = adj.sweep(traj, prob.params0, prob.time_grid)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_counts = dict(kernels.launches)
+    g = grad.double().cpu().numpy()
+    ref = np.asarray(G_REF_DIST)
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(g - ref).max()) / scale
+    good = err <= 1e-8 and ok
+    summ = timers.summary()
+    log(json.dumps(dict(dist_adjoint="notch2D h=0.0145 small_J2", parts=DIST_PARTS,
+                        grad=g.tolist(), grad_ref=G_REF_DIST, rel_err=err, limit=1e-8,
+                        steps=adj.step_info, sweep_s=sweep_s,
+                        phases={k: dict(count=v["count"], total_s=v["total"])
+                                for k, v in summ.items()},
+                        launches=sweep_counts, ok=good)))
+    if not good:
+        log(f"FAIL dist adjoint: dJ/dp rel err {err:.3e} (limit 1e-8)")
+    counts = {k: counts.get(k, 0) + v for k, v in sweep_counts.items()}
+    return good, counts
+
+
+def dist_overhead(mesh):
+    """bench.py:1096-1150's figure: seconds per GMRES iteration of an
+    unpreconditioned GMRES(30) cycle with no early exit (so every
+    iteration does the same work but for the operator) with the
+    single-device ELL operator, and with the dist per-part ELL apply and
+    its halo exchange at 1 and DIST_PARTS parts, on the bench deck's
+    Jacobians at its representative state.  A record, no limit; its
+    launches are not the main path's."""
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.parallel.dist import DistContext
+    from calibr8_tpu_torch.problem import Problem
+    from calibr8_tpu_torch.solve.ellpack import EllOperator
+    from calibr8_tpu_torch.solve.gmres import gmres_cycle
+
+    prob = Problem(load_deck(bench_deck_32()), mesh=mesh, device=DEVICE, dtype=torch.float64)
+    x, xi_prev = representative_state(prob)
+    R, J_T, diag, _, _, _ = prob.assembler.assemble(x, xi_prev, prob.params0, x_prev=x)
+    bc_dofs, bc_vals = prob.dbcs.arrays(1.0, 1)
+    m = 30
+
+    def per_iter(op, r):
+        gmres_cycle(op, r, m, 0.0)
+        torch.cuda.synchronize()
+        best = None
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _, _, k = gmres_cycle(op, r, m, 0.0)
+            torch.cuda.synchronize()
+            t = (time.perf_counter() - t0) / k
+            best = t if best is None else min(best, t)
+        return best
+
+    rec = dict(dist_overhead="cube n=32 small_J2", gmres_restart=m,
+               single_s_per_iter=per_iter(EllOperator(prob.disc, J_T, diag, bc_dofs), -R))
+    for n_parts in (1, DIST_PARTS):
+        ctx = DistContext(prob, n_parts=n_parts)
+        Rd, J_d, diag_d, _, _, _ = ctx.assemble(ctx.to_dist(x), ctx.to_dist(x),
+                                                ctx.to_dist_elem(xi_prev), prob.params0)
+        bc_mask, _ = ctx.bc_dist(bc_dofs, bc_vals)
+        A_T = ctx.ell_assemble(J_d)
+        shape = Rd.shape
+
+        def opd(v, ctx=ctx, A_T=A_T, bc_mask=bc_mask, diag_d=diag_d, shape=shape):
+            vd = v.view(shape)
+            return torch.where(bc_mask, diag_d * vd, ctx.ell_matvec(A_T, vd)).reshape(-1)
+
+        t = per_iter(opd, -Rd.reshape(-1))
+        rec[f"dist_{n_parts}_s_per_iter"] = t
+        rec[f"dist_{n_parts}_over_single"] = t / rec["single_s_per_iter"]
+        del ctx, J_d, A_T
+    log(json.dumps(rec))
+    del prob, J_T
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_probe(results):
     """Kernel 4: the probe's own entry point (calibr8_tpu_torch.probe.run)
     on the card, its launches counted from 0 and its results held to numpy
@@ -2101,6 +2640,11 @@ def main(argv) -> int:
     log(f"phase kernels: {'ok' if ok else 'FAILED'} ({time.perf_counter() - t_start:.0f} s)")
     if not ok:
         return 1
+    ok = phase_dist_kernels(meshes, results)
+    log(f"phase kernels, domain-decomposed (1c, 3c per part): {'ok' if ok else 'FAILED'} "
+        f"({time.perf_counter() - t_start:.0f} s)")
+    if not ok:
+        return 1
     ok, probe_launches = phase_probe(results)
     log(f"phase probe (kernel 4): {'ok' if ok else 'FAILED'} "
         f"({time.perf_counter() - t_start:.0f} s)")
@@ -2126,6 +2670,24 @@ def main(argv) -> int:
             return 1
         counts = {k: counts.get(k, 0) + v for k, v in c.items()}
 
+    needed = ["assembly_elems", "ell_spmv_part"]
+    for label, deck, J_ref in (
+        ("cube n=32 small_J2 (bench deck), 8 parts", bench_deck_32(), J_REF_N32),
+        ("cube n=32 hyper_J2, 8 parts", hyper_deck(32), J_REF_HYPER_N32),
+    ):
+        ok, c, single = phase_dist_full_width(label, deck, meshes["cube32"], J_ref, needed)
+        log(f"phase dist, {label}: {'ok' if ok else 'FAILED'} "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        if not ok:
+            return 1
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    ok, c = phase_dist_parity(meshes)
+    log(f"phase dist, 5 parts against the single-device solve: {'ok' if ok else 'FAILED'} "
+        f"({time.perf_counter() - t_start:.0f} s)")
+    if not ok:
+        return 1
+    counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+
     for label, deck in fd_decks().items():
         ok = phase_adjoint_fd(label, deck)
         log(f"phase adjoint, finite differences, {label}: {'ok' if ok else 'FAILED'} "
@@ -2148,6 +2710,14 @@ def main(argv) -> int:
     if not ok:
         return 1
     counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    ok, c = phase_dist_adjoint()
+    log(f"phase dist adjoint: {'ok' if ok else 'FAILED'} "
+        f"({time.perf_counter() - t_start:.0f} s)")
+    if not ok:
+        return 1
+    counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    dist_overhead(meshes["cube32"])
+    log(f"dist overhead record ({time.perf_counter() - t_start:.0f} s)")
     ok = phase_cli()
     log(f"phase cli: {'ok' if ok else 'FAILED'} ({time.perf_counter() - t_start:.0f} s)")
     if not ok:
@@ -2162,7 +2732,9 @@ def main(argv) -> int:
              "ebe_matvec": ("ebe_matvec", "float64"), "ell_spmv": ("ell_spmv", "float64"),
              "ell_spmv_T": ("ell_spmv_T", "cube n=32 small_J2", "float64"),
              "ell_spmv_level": ("ell_spmv_level", LEVEL_TIMED, "float64"),
-             "probe": ("probe", "trig", "float64")}
+             "probe": ("probe", "trig", "float64"),
+             "assembly_elems": ("assembly_elems", "cube n=32 small_J2", "float64"),
+             "ell_spmv_part": ("ell_spmv_part", "cube n=32 small_J2", "float64")}
     counts["probe"] = probe_launches
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, (src, repl) in KERNELS.items():
@@ -2182,6 +2754,17 @@ def main(argv) -> int:
             # the displacement-only rows (isotropic_elastic) beside small_J2's
             h = results[("fused_assembly", ISO_TIMED, "float64")]
             entry["isotropic_elastic"] = {k: h[k] for k in keys}
+        if name == "assembly_elems":
+            # the element-level entry of the other libraries beside small_J2's
+            for key, h in results.items():
+                if key[0] == "assembly_elems" and key[1:] != timed[name][1:] and \
+                        key[2] == "float64":
+                    entry[key[1]] = {k: h[k] for k in keys}
+        if name == "ell_spmv_part":
+            # ndpn 3 and 2 beside the 3D mixed (4, 4) instance's
+            for case in ("notch2D h=0.004 small_J2", "notch2D h=0.004 small_hill_plane_stress"):
+                h = results[("ell_spmv_part", case, "float64")]
+                entry[case] = {k: h[k] for k in keys}
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(nvidia_smi_line())
