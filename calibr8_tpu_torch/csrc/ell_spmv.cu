@@ -5,18 +5,34 @@
 //   y[i, n] = sum_{s, j} A_T[s, i, j, n] * x[nbr[n, s], j]
 // over the K neighbour slots of node n, with i, j the ndpn dofs of a
 // node (u_0..u_{d-1}, p).  The TPU version gathered the neighbour values
-// into a (K, ndpn, N) array first (gather_T, :149-177); here each thread
-// owns one node, reads its neighbours' values straight from the flat
-// dof vector (u block then p block) and writes its ndpn results straight
-// into the flat y, so there is no gathered copy and no scatter.  Slots
-// whose neighbour id is N (the pad sentinel, :113) are skipped.
+// into a (K, ndpn, N) array first (gather_T, :149-177); here the lanes
+// of a node read its neighbours' values straight from the flat dof
+// vector (u block then p block) and write its ndpn results straight into
+// the flat y, so there is no gathered copy and no scatter.
 //
 // What bounds it on an H100: reading A_T once (K * ndpn^2 words per
 // node; 69 MB at K = 15, 35,937 nodes, float64, >= 0.02 ms at
-// 3.35 TB/s); 2 flops per entry.  A_T keeps the trailing layout
-// (K, ndpn, ndpn, N) and the neighbour table is slot-major (K, N), so
-// every read of A and nbr is coalesced across the warp; only the reads
-// of x at neighbour ids are scattered, and they hit L2 (x is ~1 MB).
+// 3.35 TB/s); 2 flops per entry, 0.25 flop/byte in float64.  No entry
+// of A_T is used twice and x (at most ~1.2 MB) stays in the 50 MB L2, so
+// tensor cores (wgmma), shared-memory staging and a TMA ring have nothing
+// to reuse: the lever is memory-level parallelism, enough loads in
+// flight (~2 MB over the card, 3.35 TB/s x ~0.6 us) to cover the
+// latency of each slot's chain (the neighbour id, then x at that id).
+//
+// The design (c8_ell.cuh): G lanes per node, G in {1, 2, 4, 8} from
+// c8::ell_lanes (N, K, ndpn and the word size), blocks of 128.  Inside
+// a warp the node index is fastest: lane l takes node warp_base + l mod
+// (32 / G) and the slots l div (32 / G), + G, ...; each warp-wide read
+// of A_T and nbr_T is then G runs of 32 / G consecutive addresses, whole
+// 32-byte sectors.  Each lane takes its slots 4 at a time, ids first,
+// then x and A, then the multiply-adds, so 4 slots' loads are in flight
+// at once.  Pad slots (neighbour id N, the pad sentinel, :113 there) are
+// predicated: x is 0 there and A is not read.  A_T, nbr_T and x go
+// through the read-only path (__ldg).  The G partials of a node are
+// summed across its lanes with __shfl_xor_sync in a fixed order, no
+// atomics, so y is the same bit for bit from run to run.  A node's lanes
+// sit 32 / G apart in the warp, so the tree's steps exchange over
+// distances 32 / G * (G / 2, ..., 1).
 //
 // The same kernel is calibr8_tpu's kernel 3c, the multigrid level apply
 // (LevelEllOperator, solve/ellpack.py:322-409, called from solve/mg.py):
@@ -40,56 +56,67 @@
 
 #include <cuda_runtime.h>
 
+#include "c8_ell.cuh"
+
 namespace {
 
-template <typename T, int D, int NDPN>
-__global__ void __launch_bounds__(256) ell_spmv_kernel(
+constexpr int BLOCK = 128;
+
+template <typename T, int D, int NDPN, int G>
+__global__ void __launch_bounds__(BLOCK) ell_spmv_kernel(
     int N, int K, const T* __restrict__ A_T, const int* __restrict__ nbr_T,
     const T* __restrict__ x, T* __restrict__ y) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const size_t NN = (size_t)N;
-  const size_t nu = NN * D;  // start of the p block
+  constexpr int NPW = 32 / G;  // nodes per warp
+  const int lane = threadIdx.x & 31;
+  const int g = lane / NPW;
+  const int n = (blockIdx.x * (BLOCK / 32) + threadIdx.x / 32) * NPW + lane % NPW;
   T acc[NDPN];
+  if (n < N) {
+    c8::ell_lane_partial<T, D, NDPN>(N, K, n, g, G, A_T, nbr_T, x, acc);
+  } else {
 #pragma unroll
-  for (int i = 0; i < NDPN; ++i) acc[i] = T(0);
-  for (int s = 0; s < K; ++s) {
-    const int c = nbr_T[(size_t)s * NN + n];
-    if (c >= N) continue;  // pad slot
-    T xv[NDPN];
-#pragma unroll
-    for (int j = 0; j < D; ++j) xv[j] = x[(size_t)c * D + j];
-    if (NDPN > D) xv[NDPN - 1] = x[nu + c];
-    const T* As = A_T + (size_t)s * NDPN * NDPN * NN + n;
-#pragma unroll
-    for (int i = 0; i < NDPN; ++i)
-#pragma unroll
-      for (int j = 0; j < NDPN; ++j) acc[i] = acc[i] + As[(size_t)(i * NDPN + j) * NN] * xv[j];
+    for (int i = 0; i < NDPN; ++i) acc[i] = T(0);
   }
+  // every lane of the warp takes part in the exchange (full mask)
+#pragma unroll
+  for (int off = G / 2; off >= 1; off /= 2)
+#pragma unroll
+    for (int i = 0; i < NDPN; ++i) acc[i] = acc[i] + __shfl_xor_sync(0xffffffffu, acc[i], off * NPW);
+  if (g != 0 || n >= N) return;
 #pragma unroll
   for (int i = 0; i < D; ++i) y[(size_t)n * D + i] = acc[i];
-  if (NDPN > D) y[nu + n] = acc[NDPN - 1];
+  if (NDPN > D) y[(size_t)N * D + n] = acc[NDPN - 1];
 }
 
-template <typename T>
-int launch(int dim, int ndpn, int N, int K, const void* A_T, const void* nbr_T,
-           const void* x, void* y, cudaStream_t s) {
-  const int block = 256;
-  const int grid = (N + block - 1) / block;
-  if (N == 0) return (int)cudaGetLastError();
-#define C8_LAUNCH(D, P)                                                     \
-  ell_spmv_kernel<T, D, P><<<grid, block, 0, s>>>(N, K, (const T*)A_T,      \
-                                                  (const int*)nbr_T,        \
-                                                  (const T*)x, (T*)y)
-  if (dim == 1 && ndpn == 1) C8_LAUNCH(1, 1);
-  else if (dim == 2 && ndpn == 2) C8_LAUNCH(2, 2);
-  else if (dim == 2 && ndpn == 3) C8_LAUNCH(2, 3);
-  else if (dim == 3 && ndpn == 3) C8_LAUNCH(3, 3);
-  else if (dim == 3 && ndpn == 4) C8_LAUNCH(3, 4);
-  else if (dim == 4 && ndpn == 4) C8_LAUNCH(4, 4);
+template <typename T, int D, int NDPN>
+int launch_g(int G, int N, int K, const void* A_T, const void* nbr_T, const void* x, void* y,
+             cudaStream_t s) {
+  const int grid = (int)(((long long)N * G + BLOCK - 1) / BLOCK);
+#define C8_LAUNCH(GG)                                                                  \
+  ell_spmv_kernel<T, D, NDPN, GG><<<grid, BLOCK, 0, s>>>(N, K, (const T*)A_T,          \
+                                                         (const int*)nbr_T, (const T*)x, \
+                                                         (T*)y)
+  if (G == 1) C8_LAUNCH(1);
+  else if (G == 2) C8_LAUNCH(2);
+  else if (G == 4) C8_LAUNCH(4);
+  else if (G == 8) C8_LAUNCH(8);
   else return (int)cudaErrorInvalidValue;
 #undef C8_LAUNCH
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(int dim, int ndpn, int N, int K, const void* A_T, const void* nbr_T, const void* x,
+           void* y, cudaStream_t s) {
+  if (N == 0) return (int)cudaGetLastError();
+  const int G = c8::ell_lanes(N, K, ndpn, (int)sizeof(T));
+  if (dim == 1 && ndpn == 1) return launch_g<T, 1, 1>(G, N, K, A_T, nbr_T, x, y, s);
+  if (dim == 2 && ndpn == 2) return launch_g<T, 2, 2>(G, N, K, A_T, nbr_T, x, y, s);
+  if (dim == 2 && ndpn == 3) return launch_g<T, 2, 3>(G, N, K, A_T, nbr_T, x, y, s);
+  if (dim == 3 && ndpn == 3) return launch_g<T, 3, 3>(G, N, K, A_T, nbr_T, x, y, s);
+  if (dim == 3 && ndpn == 4) return launch_g<T, 3, 4>(G, N, K, A_T, nbr_T, x, y, s);
+  if (dim == 4 && ndpn == 4) return launch_g<T, 4, 4>(G, N, K, A_T, nbr_T, x, y, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -99,8 +126,9 @@ extern "C" {
 // device: the CUDA ordinal of the tensors (this library's runtime keeps
 // its own current device); dtype: 0 float32, 1 float64; ndpn = dim
 // (displacement-only, a multigrid level's m = dim = ndpn, 1 to 3, or the
-// per-part apply's m = dim = ndpn, 2 to 4) or dim + 1 (mixed u/p).  Returns the cudaError_t of the launch (0 on
-// success).
+// per-part apply's m = dim = ndpn, 2 to 4) or dim + 1 (mixed u/p).  The
+// lanes per node are c8::ell_lanes'.  Returns the cudaError_t of the
+// launch (0 on success).
 int c8_ell_spmv(int device, int dtype, int dim, int ndpn, int N, int K, const void* A_T,
                 const void* nbr_T, const void* x, void* y, void* stream) {
   cudaError_t err = cudaSetDevice(device);

@@ -42,7 +42,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 KERNELS = ("fused_assembly", "implicit_assembly", "implicit_eig", "implicit_barlat",
            "implicit_hybrid", "ebe_matvec", "ell_spmv", "ell_spmv_T", "probe")
 HEADERS = ("c8_dual.cuh", "c8_element.cuh", "c8_hill.cuh", "c8_hyper.cuh", "c8_hypo.cuh",
-           "c8_implicit.cuh", "c8_eig.cuh", "c8_hosford.cuh", "c8_hybrid.cuh")
+           "c8_implicit.cuh", "c8_eig.cuh", "c8_hosford.cuh", "c8_hybrid.cuh", "c8_ell.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
@@ -159,8 +159,11 @@ def check(lib_name: str, err: int) -> None:
 
 
 def stream_ptr(device) -> int:
-    """The raw cudaStream_t of PyTorch's current stream on `device`."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw cudaStream_t of PyTorch's current stream on `device` (a
+    torch.device with its index).  Read without building a
+    torch.cuda.Stream, which costs several microseconds of host time a
+    launch on the card's machine."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def dtype_code(dtype) -> int:

@@ -119,23 +119,43 @@ def assemble_ell_T(J_T, disc):
 _ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
 
 
+def _check_ell(A_T, nbr_T, x, dim: int):
+    """Check the inputs of an ELL kernel on tensors of any device: A_T
+    (K, ndpn, ndpn, n) with ndpn = dim or dim + 1, nbr_T (K, n) int32, x
+    (n * ndpn,) of A_T's dtype, all three contiguous on x's device.
+    Raises ValueError naming the argument; returns (K, ndpn, n).  The
+    messages are formatted only on failure: formatted eagerly they cost
+    more host time a call than the kernel takes on the card."""
+    req = kernels.require
+    if A_T.dim() != 4 or A_T.shape[1] != A_T.shape[2]:
+        req(False, f"A_T has shape {tuple(A_T.shape)}, want (K, ndpn, ndpn, n)")
+    K, ndpn, _, n = A_T.shape
+    if ndpn != dim and ndpn != dim + 1:
+        req(False, f"A_T's ndpn {ndpn} does not fit dim {dim}")
+    if nbr_T.shape != (K, n) or nbr_T.dtype != torch.int32:
+        req(False, f"nbr_T is {tuple(nbr_T.shape)} {nbr_T.dtype}, want ({K}, {n}) torch.int32")
+    if x.shape != (n * ndpn,):
+        req(False, f"x has shape {tuple(x.shape)}, want ({n * ndpn},)")
+    if A_T.dtype != x.dtype:
+        req(False, f"A_T is {A_T.dtype}, x is {x.dtype}")
+    dev = x.get_device()
+    for arg, t in (("A_T", A_T), ("nbr_T", nbr_T), ("x", x)):
+        if t.get_device() != dev:
+            req(False, f"{arg} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            req(False, f"{arg} is not contiguous")
+    return K, ndpn, n
+
+
 def _launch(name, symbol, A_T, nbr_T, x, dim, y, counter=None):
     """Check the inputs of an ELL kernel of library `name` and launch it
     into y; the launch counts under `counter` (default: `name`)."""
-    req = kernels.require
-    K, ndpn, _, n = A_T.shape
-    req(A_T.shape == (K, ndpn, ndpn, n), f"A_T has shape {tuple(A_T.shape)}")
-    req(ndpn in (dim, dim + 1), f"ndpn {ndpn} does not fit dim {dim}")
-    req(nbr_T.shape == (K, n) and nbr_T.dtype == torch.int32, "nbr_T must be (K, n) int32")
-    req(x.shape == (n * ndpn,), f"x has shape {tuple(x.shape)}, want ({n * ndpn},)")
-    req(A_T.dtype == x.dtype, f"A_T is {A_T.dtype}, x is {x.dtype}")
-    for arg, t in (("A_T", A_T), ("nbr_T", nbr_T), ("x", x)):
-        req(t.device == x.device, f"{arg} is on {t.device}, x on {x.device}")
-        req(t.is_contiguous(), f"{arg} is not contiguous")
+    K, ndpn, n = _check_ell(A_T, nbr_T, x, dim)
+    dev = x.device
     fn = kernels.function(name, symbol, _ARGTYPES)
     err = fn(
-        x.device.index, kernels.dtype_code(x.dtype), dim, ndpn, n, K, A_T.data_ptr(), nbr_T.data_ptr(),
-        x.data_ptr(), y.data_ptr(), kernels.stream_ptr(x.device),
+        dev.index, kernels.dtype_code(x.dtype), dim, ndpn, n, K, A_T.data_ptr(), nbr_T.data_ptr(),
+        x.data_ptr(), y.data_ptr(), kernels.stream_ptr(dev),
     )
     kernels.check(name, err)
     kernels.launches[counter or name] += 1
@@ -199,8 +219,9 @@ def part_ell_spmv(A_T, nbr_T, x, m: int):
     version."""
     if not x.is_cuda:
         return part_ell_spmv_plain(A_T, nbr_T, x, m)
-    kernels.require(x.dim() == 3 and x.shape[2] == m and x.is_contiguous(),
-                    f"x must be a contiguous (P, N_loc, {m}) tensor, got {tuple(x.shape)}")
+    if x.dim() != 3 or x.shape[2] != m or not x.is_contiguous():
+        kernels.require(False, f"x must be a contiguous (P, N_loc, {m}) tensor, "
+                               f"got {tuple(x.shape)}")
     y = torch.empty_like(x)
     _launch("ell_spmv", "c8_ell_spmv", A_T, nbr_T, x.reshape(-1), m, y, counter="ell_spmv_part")
     return y

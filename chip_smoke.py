@@ -41,9 +41,13 @@ Phases, in order; any failure exits non-zero without the result lines:
     call (CUDA events around back-to-back calls), the plain version's, a
     one-call PyTorch yardstick where one exists, the least time the card
     could take (bound), and for the implicit kernel the histogram of
-    local Newton iterations.  Then (2b) the domain-decomposed solver's
-    kernels at 8 parts (DistContext, float32 and float64): the
-    element-level entry of the assembly (kernel 1c, assembly_elems: the
+    local Newton iterations.  The ELL records (3a, 3b, 3c, 3c per part)
+    and the EBE's add device_ms, the kernel's device time per call
+    (torch.profiler over the same back-to-back loop), and the CSR mv's
+    library_device_ms, which split a call's wall into card and host; 3a
+    and 3c record that two calls give the same y bit for bit.  Then (2b)
+    the domain-decomposed solver's kernels at 8 parts (DistContext,
+    float32 and float64): the element-level entry of the assembly (kernel 1c, assembly_elems: the
     five libraries reading pre-gathered element columns) on the elements
     the parts gather, at cube n=32 small_J2, isotropic_elastic, hyper_J2
     (x_prev), small_hosford and hypo_barlat and notch2D h=0.004 small_J2,
@@ -857,6 +861,49 @@ def time_ms(fn, reps: int, rounds: int = 3) -> float:
     return sorted(means)[len(means) // 2]
 
 
+def device_ms(fn, reps: int, kernel: str | None = None) -> float:
+    """Device time of one call: under torch.profiler, the device time of
+    `reps` back-to-back calls (of the kernels whose name holds `kernel`,
+    else of every kernel the call runs), over `reps`.  Where the profiler
+    shows no device time at all, CUDA events around the replay of a CUDA
+    graph that holds the `reps` calls; raises where it shows device time
+    but none of a kernel named like `kernel`.  Beside time_ms it splits a
+    call's wall into the card's share and the host's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    us = sum(e.self_device_time_total for e in events if kernel is None or kernel in e.key)
+    if us > 0:
+        return us / 1e3 / reps
+    if events:
+        raise RuntimeError(f"no kernel named like {kernel!r} in the profile of the call: "
+                           f"{sorted({e.key for e in events})}")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def bound(nbytes: float, flops: float, dtype_name: str):
     t_b = nbytes / PEAK_BYTES_PER_S * 1e3
     t_f = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -920,6 +967,7 @@ def phase_kernels(mesh, results):
         torch.cuda.synchronize()
         err, aerr = rel_err(yk, yp)
         ms = time_ms(lambda: ebe_matvec(J_T, v, disc.edofs_T, n_dofs), 30)
+        dms = device_ms(lambda: ebe_matvec(J_T, v, disc.edofs_T, n_dofs), 30, "ebe_matvec_kernel")
         pms = time_ms(lambda: ebe_matvec_plain(J_T, v, disc.edofs_T, n_dofs), 10)
         J_ef = J_T.permute(2, 0, 1).contiguous()
         idx = disc.edofs
@@ -930,12 +978,14 @@ def phase_kernels(mesh, results):
                 0, idx.reshape(-1), ye.reshape(-1))
 
         lms = time_ms(lib_ebe, 10)
+        ldms = device_ms(lib_ebe, 10)
         err_lib = rel_err(lib_ebe(), yp)[0]
         del J_ef
         nbytes = nde * nde * E * w + nde * E * 4 + 2 * n_dofs * w
         b_ms, b_by = bound(nbytes, 2.0 * nde * nde * E, dn)
         rec = dict(kernel="ebe_matvec", dtype=dn, rel_err=err, max_abs_err=aerr, ms=ms,
-                   plain_ms=pms, library_ms=lms, library_rel_err=err_lib,
+                   device_ms=dms, plain_ms=pms, library_ms=lms, library_device_ms=ldms,
+                   library_rel_err=err_lib,
                    bound_ms=b_ms, bound_by=b_by, limit=lim)
         log(json.dumps(rec))
         if not err <= lim:
@@ -954,11 +1004,15 @@ def phase_kernels(mesh, results):
         torch.cuda.synchronize()
         err, aerr = rel_err(yk, yp)
         err_vs_ebe = rel_err(yk, ebe_matvec_plain(J_T, v, disc.edofs_T, n_dofs))[0]
+        # two calls give the same y bit for bit (no atomics)
+        repeat = torch.equal(yk, ell_spmv(A_T, nbr_T, v, d))
         ms = time_ms(lambda: ell_spmv(A_T, nbr_T, v, d), 30)
+        dms = device_ms(lambda: ell_spmv(A_T, nbr_T, v, d), 30, "ell_spmv_kernel")
         pms = time_ms(lambda: ell_spmv_plain(A_T, nbr_T, v, d), 10)
         # the same matrix as torch.sparse CSR (built once, not timed)
         csr, nnz_slots = ell_csr(A_T, nbr_T, d, n_dofs)
         lms = time_ms(lambda: torch.mv(csr, v), 30)
+        ldms = device_ms(lambda: torch.mv(csr, v), 30)
         err_lib = rel_err(torch.mv(csr, v), yp)[0]
         del csr
         # the A_T blocks of the filled slots (the kernel skips the pad
@@ -967,11 +1021,13 @@ def phase_kernels(mesh, results):
         b_ms, b_by = bound(nbytes, 2.0 * ndpn * ndpn * nnz_slots, dn)
         rec = dict(kernel="ell_spmv", dtype=dn, rel_err=err, max_abs_err=aerr,
                    rel_err_vs_ebe=err_vs_ebe, K=K, filled_slots=nnz_slots, ms=ms,
-                   plain_ms=pms, library_ms=lms, library_rel_err=err_lib,
-                   bound_ms=b_ms, bound_by=b_by, limit=lim)
+                   device_ms=dms, plain_ms=pms, library_ms=lms, library_device_ms=ldms,
+                   library_rel_err=err_lib, bound_ms=b_ms, bound_by=b_by, limit=lim,
+                   repeatable=repeat)
         log(json.dumps(rec))
-        if not err <= lim:
-            log(f"FAIL ell_spmv {dn}: rel err {err:.3e} (limit {lim:.0e})")
+        if not (err <= lim and repeat):
+            log(f"FAIL ell_spmv {dn}: rel err {err:.3e} (limit {lim:.0e}), two calls equal "
+                f"{repeat}")
             ok = False
         results[("ell_spmv", dn)] = rec
 
@@ -1173,9 +1229,11 @@ def check_ell_spmv_T(label, disc, J_T, diag_e, bc_dofs, results):
     torch.cuda.synchronize()
     err, aerr = rel_err(yk, yp)
     ms = time_ms(lambda: ell_spmv_T(A_T, nbr_T, v, d), 30)
+    dms = device_ms(lambda: ell_spmv_T(A_T, nbr_T, v, d), 30, "ell_spmv_T_kernel")
     pms = time_ms(lambda: ell_spmv_T_plain(A_T, nbr_T, v, d), 10)
     csr, nnz_slots = ell_csr(A_T, nbr_T, d, n_dofs, transpose=True)
     lms = time_ms(lambda: torch.mv(csr, v), 30)
+    ldms = device_ms(lambda: torch.mv(csr, v), 30)
     err_lib = rel_err(torch.mv(csr, v), yp)[0]
     del csr
     # the A_T blocks of the filled slots (the kernel skips the pad slots'
@@ -1189,8 +1247,8 @@ def check_ell_spmv_T(label, disc, J_T, diag_e, bc_dofs, results):
     good = err <= lim and op_err <= lim
     rec = dict(kernel="ell_spmv_T", case=label, dtype=dn, rel_err=err, max_abs_err=aerr,
                operator_rel_err=op_err, K=K, ndpn=ndpn, filled_slots=nnz_slots, ms=ms,
-               plain_ms=pms, library_ms=lms, library_rel_err=err_lib, bound_ms=b_ms,
-               bound_by=b_by, limit=lim, ok=good)
+               device_ms=dms, plain_ms=pms, library_ms=lms, library_device_ms=ldms,
+               library_rel_err=err_lib, bound_ms=b_ms, bound_by=b_by, limit=lim, ok=good)
     log(json.dumps(rec))
     if not good:
         log(f"FAIL ell_spmv_T {label} {dn}: rel err {err:.3e}, operator {op_err:.3e} "
@@ -1551,12 +1609,13 @@ def check_operators_at(label, disc, J_T, bc_dofs, results):
         yp = fp()
         err, aerr = rel_err(fk(), yp)
         good = err <= lim
-        ok &= good
         b_ms, b_by = bound(nbytes, flops, dn)
         rec = dict(kernel=name, case=label, dtype=dn, rel_err=err, max_abs_err=aerr,
-                   ms=time_ms(fk, 30), plain_ms=time_ms(fp, 10), library_ms=time_ms(fl, 10),
-                   library_rel_err=rel_err(fl(), yp)[0], bound_ms=b_ms, bound_by=b_by,
-                   ndpn=ndpn, limit=lim, ok=good)
+                   ms=time_ms(fk, 30), device_ms=device_ms(fk, 30, f"{name}_kernel"),
+                   plain_ms=time_ms(fp, 10), library_ms=time_ms(fl, 10),
+                   library_device_ms=device_ms(fl, 10), library_rel_err=rel_err(fl(), yp)[0],
+                   bound_ms=b_ms, bound_by=b_by, ndpn=ndpn, limit=lim, ok=good)
+        ok &= good
         log(json.dumps(rec))
         results[(name, label, dn)] = rec
     del A_T, csr, J_ef
@@ -1976,7 +2035,8 @@ def check_level_apply(label, A_T, nbr_T, m, results):
     float64 and (the same matrix rounded) float32, forward, with the
     ell_spmv_T kernel's level instance held the same way; each with its
     time, bound (the filled slots' blocks, nbr_T and the vectors) and the
-    torch.sparse CSR mv of the same matrix."""
+    torch.sparse CSR mv of the same matrix; the forward apply also gives
+    the same y bit for bit in two calls."""
     from calibr8_tpu_torch.solve.ellpack import (
         ell_spmv_T, ell_spmv_T_plain, level_ell_spmv, level_ell_spmv_plain,
     )
@@ -1991,25 +2051,33 @@ def check_level_apply(label, A_T, nbr_T, m, results):
         gen = torch.Generator(device=DEVICE).manual_seed(3)
         v = torch.randn(n * m, generator=gen, device=DEVICE, dtype=dtype)
         rec = dict(kernel="ell_spmv_level", case=label, dtype=dn, m=m, nodes=n, K=K, limit=lim)
-        for direction, fk, fp in (
+        for direction, fk, fp, kname in (
             ("forward", lambda: level_ell_spmv(A, nbr_T, v, m),
-             lambda: level_ell_spmv_plain(A, nbr_T, v, m)),
-            ("transposed", lambda: ell_spmv_T(A, nbr_T, v, m), lambda: ell_spmv_T_plain(A, nbr_T, v, m)),
+             lambda: level_ell_spmv_plain(A, nbr_T, v, m), "ell_spmv_kernel"),
+            ("transposed", lambda: ell_spmv_T(A, nbr_T, v, m), lambda: ell_spmv_T_plain(A, nbr_T, v, m),
+             "ell_spmv_T_kernel"),
         ):
             yp = fp()
-            err, aerr = rel_err(fk(), yp)
+            yk = fk()
+            err, aerr = rel_err(yk, yp)
             csr, nnz_slots = ell_csr(A, nbr_T, m, n * m, transpose=direction == "transposed")
             lms = time_ms(lambda: torch.mv(csr, v), 30)
+            ldms = device_ms(lambda: torch.mv(csr, v), 30)
             err_lib = rel_err(torch.mv(csr, v), yp)[0]
             del csr
             nbytes = nnz_slots * m * m * w + K * n * 4 + 2 * n * m * w
             b_ms, b_by = bound(nbytes, 2.0 * m * m * nnz_slots, dn)
             good = err <= lim
+            r = dict(rel_err=err, max_abs_err=aerr, ms=time_ms(fk, 50),
+                     device_ms=device_ms(fk, 50, kname), plain_ms=time_ms(fp, 10), library_ms=lms,
+                     library_device_ms=ldms, library_rel_err=err_lib, bound_ms=b_ms,
+                     bound_by=b_by, filled_slots=nnz_slots)
+            if direction == "forward":
+                # two calls give the same y bit for bit (no atomics)
+                r["repeatable"] = torch.equal(yk, fk())
+                good = good and r["repeatable"]
             ok &= good
-            rec[direction] = dict(rel_err=err, max_abs_err=aerr, ms=time_ms(fk, 50),
-                                  plain_ms=time_ms(fp, 10), library_ms=lms,
-                                  library_rel_err=err_lib, bound_ms=b_ms, bound_by=b_by,
-                                  filled_slots=nnz_slots, ok=good)
+            rec[direction] = dict(r, ok=good)
         log(json.dumps(rec))
         if not rec["forward"]["ok"] or not rec["transposed"]["ok"]:
             log(f"FAIL ell_spmv_level {label} {dn}")
@@ -2121,6 +2189,7 @@ def check_part_apply(label, ctx, J_T, results):
     csr, nnz_slots = ell_csr(A_T, nbr_T, m, PN * m)
     xf = x.reshape(-1)
     lms = time_ms(lambda: torch.mv(csr, xf), 30)
+    ldms = device_ms(lambda: torch.mv(csr, xf), 30)
     err_lib = rel_err(torch.mv(csr, xf).view_as(yp), yp)[0]
     del csr
     nbytes = nnz_slots * m * m * w + K * PN * 4 + 2 * PN * m * w
@@ -2129,9 +2198,10 @@ def check_part_apply(label, ctx, J_T, results):
     rec = dict(kernel="ell_spmv_part", case=label, dtype=dn, parts=ctx.part.n_parts, m=m, K=K,
                nodes=PN, filled_slots=nnz_slots, rel_err=err, max_abs_err=aerr,
                ms=time_ms(lambda: part_ell_spmv(A_T, nbr_T, x, m), 30),
+               device_ms=device_ms(lambda: part_ell_spmv(A_T, nbr_T, x, m), 30, "ell_spmv_kernel"),
                plain_ms=time_ms(lambda: part_ell_spmv_plain(A_T, nbr_T, x, m), 10),
-               library_ms=lms, library_rel_err=err_lib, bound_ms=b_ms, bound_by=b_by, limit=lim,
-               ok=good)
+               library_ms=lms, library_device_ms=ldms, library_rel_err=err_lib, bound_ms=b_ms,
+               bound_by=b_by, limit=lim, ok=good)
     log(json.dumps(rec))
     if not good:
         log(f"FAIL ell_spmv_part {label} {dn}: rel err {err:.3e} (limit {lim:.0e})")
@@ -2736,35 +2806,41 @@ def main(argv) -> int:
              "assembly_elems": ("assembly_elems", "cube n=32 small_J2", "float64"),
              "ell_spmv_part": ("ell_spmv_part", "cube n=32 small_J2", "float64")}
     counts["probe"] = probe_launches
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # device_ms: the ELL kernels' and the EBE's device time per call
+    # (device_ms()); null for the kernels whose records do not take it
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def figures(r):
+        return {k: r.get(k) if k == "device_ms" else r[k] for k in keys}
+
     for name, (src, repl) in KERNELS.items():
         r = results[timed[name]]
         if name == "ell_spmv_level":
             r = r["forward"]
         entry = dict(name=name, route="cuda", source=src, replaces=repl,
-                     launches=counts[name], **{k: r[k] for k in keys})
+                     launches=counts[name], **figures(r))
         if name == "implicit_assembly":
             # the hypo_hill family's figures at cube n=32 beside hyper_J2's
             h = results[("implicit_assembly", "cube n=32 hypo_hill", "float64")]
-            entry["hypo_hill"] = {k: h[k] for k in keys}
+            entry["hypo_hill"] = figures(h)
         if name == "implicit_eig":
             h = results[("implicit_eig", "cube n=32 hypo_hosford", "float64")]
-            entry["hypo_hosford"] = {k: h[k] for k in keys}
+            entry["hypo_hosford"] = figures(h)
         if name == "fused_assembly":
             # the displacement-only rows (isotropic_elastic) beside small_J2's
             h = results[("fused_assembly", ISO_TIMED, "float64")]
-            entry["isotropic_elastic"] = {k: h[k] for k in keys}
+            entry["isotropic_elastic"] = figures(h)
         if name == "assembly_elems":
             # the element-level entry of the other libraries beside small_J2's
             for key, h in results.items():
                 if key[0] == "assembly_elems" and key[1:] != timed[name][1:] and \
                         key[2] == "float64":
-                    entry[key[1]] = {k: h[k] for k in keys}
+                    entry[key[1]] = figures(h)
         if name == "ell_spmv_part":
             # ndpn 3 and 2 beside the 3D mixed (4, 4) instance's
             for case in ("notch2D h=0.004 small_J2", "notch2D h=0.004 small_hill_plane_stress"):
                 h = results[("ell_spmv_part", case, "float64")]
-                entry[case] = {k: h[k] for k in keys}
+                entry[case] = figures(h)
         line.append(entry)
     print(json.dumps({"kernels": line}))
     print(nvidia_smi_line())
