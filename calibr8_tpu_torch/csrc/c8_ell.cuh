@@ -1,5 +1,6 @@
 // One lane's share of the node-block ELLPACK product y = A x, and the rule
-// that sets how many lanes share a node (csrc/ell_spmv.cu).
+// that sets how many lanes share a node (csrc/ell_spmv.cu); below it, one
+// lane's share of the transposed product y = A^T x (csrc/ell_spmv_T.cu).
 //
 //   y[i, n] = sum_{s, j} A_T[s, i, j, n] * x[nbr_T[s, n], j]
 //
@@ -19,7 +20,8 @@
 // run to run.
 //
 // Everything here is __host__ __device__ (C8_HD), so a host C++ compiler
-// builds it for checking without a card (tests/test_torch_ell_host.py).
+// builds it for checking without a card (tests/test_torch_ell_host.py,
+// tests/test_torch_ell_T_host.py).
 #pragma once
 
 #include "c8_dual.cuh"
@@ -28,6 +30,16 @@ namespace c8 {
 
 // Largest lanes per node: a node has at most K slots to share out.
 constexpr int ELL_MAX_LANES = 8;
+
+// The largest power of two G <= min(ELL_MAX_LANES, next_pow2(K)) with
+// N * G <= threads and N * G * ndpn^2 <= words (A words in flight); 1
+// where N alone passes them.
+C8_HD int ell_lanes_within(int N, int K, int ndpn, long long threads, long long words) {
+  int G = 1;
+  while (G < K && G < ELL_MAX_LANES) G *= 2;
+  while (G > 1 && ((long long)N * G > threads || (long long)N * G * ndpn * ndpn > words)) G /= 2;
+  return G;
+}
 
 // Lanes per node of the forward kernel, for N nodes of K slots, ndpn x
 // ndpn blocks of `word` bytes: the largest power of two G <=
@@ -51,12 +63,26 @@ C8_HD int ell_lanes(int N, int K, int ndpn, int word) {
   // a build with the lanes fixed, for the sweep of ell_sweep.py
   return C8_ELL_LANES;
 #else
-  const long long threads = ndpn <= 2 ? 1LL << 17 : 1LL << 18;
-  const long long words = word >= 8 ? 1LL << 21 : 1LL << 19;
-  int G = 1;
-  while (G < K && G < ELL_MAX_LANES) G *= 2;
-  while (G > 1 && ((long long)N * G > threads || (long long)N * G * ndpn * ndpn > words)) G /= 2;
-  return G;
+  return ell_lanes_within(N, K, ndpn, ndpn <= 2 ? 1LL << 17 : 1LL << 18,
+                          word >= 8 ? 1LL << 21 : 1LL << 19);
+#endif
+}
+
+// Lanes per node of the transposed kernel (csrc/ell_spmv_T.cu): the same
+// rule with the float64 cap on A words in flight halved, N * G * ndpn^2
+// <= 2^20 (float32 keeps 2^19).  Set from the sweep of G = 1, 2, 4, 8 at
+// the transposed kernel's shapes on an H100 (ell_sweep.py, PERF.md), with
+// the L2 flushed before each call: the gather's reads of A_T at (tr, i, j,
+// m) are already scattered across the warp, and more lanes per node cut
+// them into still shorter runs, so float64 cube n=32 did best at G = 2
+// for ndpn 3 (the forward rule's 4 read ~1.16x) and within 4% at G = 1
+// for ndpn 4; the small levels still want 8.
+C8_HD int ell_T_lanes(int N, int K, int ndpn, int word) {
+#ifdef C8_ELL_LANES
+  return C8_ELL_LANES;
+#else
+  return ell_lanes_within(N, K, ndpn, ndpn <= 2 ? 1LL << 17 : 1LL << 18,
+                          word >= 8 ? 1LL << 20 : 1LL << 19);
 #endif
 }
 
@@ -121,6 +147,73 @@ C8_HD void ell_lane_partial(int N, int K, int n, int g, int G, const T* __restri
   for (; s + (U - 1) * G < K; s += U * G)
     ell_slot_batch<T, D, NDPN, U, true>(N, K, n, s, G, A_T, nbr_T, x, acc);
   if (s < K) ell_slot_batch<T, D, NDPN, U, false>(N, K, n, s, G, A_T, nbr_T, x, acc);
+}
+
+// The transposed product y = A^T x as a gather over output node c's own
+// row.  The pattern is structurally symmetric (m is in row c exactly
+// when c is in row m), so with tr_T (K, N) int32 the slot of c in row
+// m = nbr_T[t, c] (solve/ellpack.py transposed_slots; 0 in the pads):
+//
+//   y[j, c] = sum_{t, i} A_T[tr_T[t, c], i, j, m] * x[m, i]
+//
+// Every A_T block of a filled slot is read by exactly one (c, t), and
+// each output node is summed by its own lanes in a fixed order, then
+// stored once.  The lanes and batches are the forward kernel's: lane g
+// of G takes the slots g, g + G, ... < K, U = 4 at a time, the ids
+// (nbr_T, tr_T) first, then x at m and the ndpn^2 words of A_T at (tr, .,
+// ., m), then the multiply-adds.  A pad slot (id N) is predicated: x is 0
+// there and A is not read, so A_T may hold anything in its pad slots.
+
+// The slots t0, t0 + G, ..., t0 + (U - 1) G of output node c added into
+// acc, in that order; FULL: all U are < K (else the ones >= K count as
+// pads).
+template <typename T, int D, int NDPN, int U, bool FULL>
+C8_HD void ell_T_slot_batch(int N, int K, int c, int t0, int G, const T* __restrict__ A_T,
+                            const int* __restrict__ nbr_T, const int* __restrict__ tr_T,
+                            const T* __restrict__ x, T acc[NDPN]) {
+  const size_t NN = (size_t)N;
+  int m[U], r[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int t = t0 + u * G;
+    const bool in = FULL || t < K;
+    m[u] = in ? ell_ld(nbr_T + (size_t)t * NN + c) : N;
+    r[u] = in ? ell_ld(tr_T + (size_t)t * NN + c) : 0;
+  }
+  T xv[U][NDPN];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int i = 0; i < NDPN; ++i) xv[u][i] = m[u] < N ? ell_ld(x + ell_xdof<D>(NN, m[u], i)) : T(0);
+  T a[U][NDPN * NDPN];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const size_t at = m[u] < N ? (size_t)r[u] * NDPN * NDPN * NN + m[u] : 0;
+#pragma unroll
+    for (int k = 0; k < NDPN * NDPN; ++k)
+      a[u][k] = m[u] < N ? ell_ld(A_T + at + (size_t)k * NN) : T(0);
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int j = 0; j < NDPN; ++j)
+#pragma unroll
+      for (int i = 0; i < NDPN; ++i) acc[j] = acc[j] + a[u][i * NDPN + j] * xv[u][i];
+}
+
+// Lane g's partial sums of output node c of y = A^T x over the slots g,
+// g + G, ... < K.
+template <typename T, int D, int NDPN>
+C8_HD void ell_T_lane_partial(int N, int K, int c, int g, int G, const T* __restrict__ A_T,
+                              const int* __restrict__ nbr_T, const int* __restrict__ tr_T,
+                              const T* __restrict__ x, T acc[NDPN]) {
+  constexpr int U = 4;
+#pragma unroll
+  for (int j = 0; j < NDPN; ++j) acc[j] = T(0);
+  int t = g;
+  for (; t + (U - 1) * G < K; t += U * G)
+    ell_T_slot_batch<T, D, NDPN, U, true>(N, K, c, t, G, A_T, nbr_T, tr_T, x, acc);
+  if (t < K) ell_T_slot_batch<T, D, NDPN, U, false>(N, K, c, t, G, A_T, nbr_T, tr_T, x, acc);
 }
 
 }  // namespace c8

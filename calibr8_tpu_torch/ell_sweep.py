@@ -1,27 +1,33 @@
-"""The forward ELL kernel (csrc/ell_spmv.cu) at each number of lanes per
-node on the card: the measurement behind the launch rule c8::ell_lanes
-(csrc/c8_ell.cuh), with an earlier version of the kernel beside it.
+"""The ELL kernels at each number of lanes per node on the card: the
+forward kernel (csrc/ell_spmv.cu) and the transposed one
+(csrc/ell_spmv_T.cu), the measurement behind their launch rules
+c8::ell_lanes and c8::ell_T_lanes (csrc/c8_ell.cuh), with earlier
+versions of the kernels beside them.
 
-    python -m calibr8_tpu_torch.ell_sweep [--old OLD_ell_spmv.cu] [--reps 30]
+    python -m calibr8_tpu_torch.ell_sweep [--old OLD_ell_spmv.cu]
+        [--old-T OLD_ell_spmv_T.cu] [--reps 30]
 
-Builds csrc/ell_spmv.cu as the program builds it (G from the rule), four
-times more with the lanes fixed (-DC8_ELL_LANES=G, G = 1, 2, 4, 8) and,
-with --old, an earlier ell_spmv.cu with the same C entry c8_ell_spmv; one
-nvcc each, all started together, into _build/ell_sweep/.  Then, at every
-shape at which chip_smoke.py holds the forward kernel (3a, the multigrid
-levels of 3c, 3c per part), in float64 and float32, it calls each build
-on random A_T and x over the ELL pattern of the deck's mesh, holds its y
+Builds each source as the program builds it (G from the rule), four times
+more with the lanes fixed (-DC8_ELL_LANES=G, G = 1, 2, 4, 8) and, with
+--old / --old-T, an earlier file with the same C entry (c8_ell_spmv; the
+scatter form of c8_ell_spmv_T, which takes no tr_T and adds into a zeroed
+y); one nvcc each, all started together, into _build/ell_sweep/.  Then,
+at every shape at which chip_smoke.py holds a kernel (the forward one: 3a,
+the multigrid levels of 3c, 3c per part; the transposed one, 3b: the 3a
+shapes and the levels), in float64 and float32, it calls each build on
+random A_T and x over the ELL pattern of the deck's mesh, holds its y
 against the plain version at chip_smoke.py's limits, and reads the
 kernel's device time per call under torch.profiler three ways: with 256
 MB read before every call ("cold": the L2 holds other, clean data and
 A_T comes from device memory, as on the Krylov solver's path, where the
 orthogonalisation and preconditioner kernels between two products evict
 it), with 256 MB written before every call ("dirty": the same, while the
-L2 writes the other data back) and back to back ("warm").
-`rule_G` is the fixed G whose y equals the rule build's bit for bit.
-Prints one JSON line per shape and dtype, then the card's name and power
-limit, then {"ok": ...}: whether every build was within its limit.
-Needs a CUDA device.
+L2 writes the other data back) and back to back ("warm").  The old
+transposed kernel's time is its own kernel's; its zero fill of y is a
+separate launch, not counted.  `rule_G` is the fixed G whose y equals the
+rule build's bit for bit.  Prints one JSON line per kernel, shape and
+dtype, then the card's name and power limit, then {"ok": ...}: whether
+every build was within its limit.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ from calibr8_tpu_torch.mesh import generators
 from calibr8_tpu_torch.mesh.refine import uniform_refine
 from calibr8_tpu_torch.parallel.partition import build_partition
 from calibr8_tpu_torch.solve.ellpack import (
-    ell_maps_from_conn, ell_spmv_plain, level_ell_spmv_plain,
+    ell_maps_from_conn, ell_spmv_plain, ell_spmv_T_plain, level_ell_spmv_plain,
 )
 
 LANES = (1, 2, 4, 8)
@@ -49,7 +55,9 @@ LANES = (1, 2, 4, 8)
 LIMITS = {torch.float64: 1e-12, torch.float32: 1e-5}
 PEAK_BYTES_PER_S = 3.35e12
 PARTS = 8
-ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
+# direction -> (source, C entry, kernel name in the profiler)
+SOURCES = {"forward": ("ell_spmv", "c8_ell_spmv", "ell_spmv_kernel"),
+           "transposed": ("ell_spmv_T", "c8_ell_spmv_T", "ell_spmv_T_kernel")}
 
 
 def _refined(mesh, times: int):
@@ -58,9 +66,10 @@ def _refined(mesh, times: int):
     return mesh
 
 
-def _nbr_T(mesh):
+def _maps_T(mesh):
+    """nbr_T and tr_T (K, N) int32 of the mesh's ELL pattern."""
     maps = ell_maps_from_conn(mesh.conn, mesh.n_nodes)
-    return np.ascontiguousarray(maps["nbr"].T)
+    return np.ascontiguousarray(maps["nbr"].T), np.ascontiguousarray(maps["tr"].T)
 
 
 def _part_nbr_T(mesh):
@@ -75,68 +84,75 @@ def _part_nbr_T(mesh):
 
 
 def shapes():
-    """(label, dim, ndpn, nbr_T (K, N) int32 on the host) of every record
-    of the forward kernel in chip_smoke.py: 3a at cube n=32 (mixed u/p and
-    isotropic_elastic) and notch2D h=0.004 (ndpn 2 and 3); 3c at the
-    multigrid decks' levels (cube n=4 refined 3 times: the fine pressure
-    block and level 1; notch2D h=0.032 refined 3 times: level 1); 3c per
-    part at 8 parts (cube n=32 ndpn 4, notch2D h=0.004 ndpn 3 and 2)."""
-    cube, notch = generators.cube(32), generators.notch2d(0.004)
+    """(kernel, label, dim, ndpn, nbr_T, tr_T) of every record of the ELL
+    kernels in chip_smoke.py, host arrays, `kernel` naming the forward one
+    (3a, 3c, 3c per part); tr_T is None where chip_smoke.py holds only the
+    forward kernel, else the transposed one (3b) is held there too: cube
+    n=32 (mixed u/p and isotropic_elastic) and notch2D h=0.004 (ndpn 2 and
+    3); the multigrid decks' levels (cube n=4 refined 3 times: the fine
+    pressure block and level 1; notch2D h=0.032 refined 3 times: level 1);
+    the parts at 8 parts (cube n=32 ndpn 4, notch2D h=0.004 ndpn 3 and 2;
+    forward only)."""
+    cube_m, notch_m = generators.cube(32), generators.notch2d(0.004)
+    cube, notch = _maps_T(cube_m), _maps_T(notch_m)
     cube_l1 = _refined(generators.cube(4), 2)
-    cube_fine = _refined(cube_l1, 1)
-    notch_l1 = _refined(generators.notch2d(0.032), 2)
-    c, n = _nbr_T(cube), _nbr_T(notch)
-    cl1 = _nbr_T(cube_l1)
+    cube_fine = _maps_T(_refined(cube_l1, 1))
+    cl1 = _maps_T(cube_l1)
+    notch_l1 = _maps_T(_refined(generators.notch2d(0.032), 2))
     out = [
-        ("3a cube n=32 mixed u/p", 3, 4, c),
-        ("3a cube n=32 isotropic_elastic", 3, 3, c),
-        ("3a notch2D h=0.004 ndpn 2", 2, 2, n),
-        ("3a notch2D h=0.004 ndpn 3", 2, 3, n),
-        ("3c cube MG fine p block", 1, 1, _nbr_T(cube_fine)),
-        ("3c cube MG level 1 u", 3, 3, cl1),
-        ("3c cube MG level 1 p", 1, 1, cl1),
-        ("3c notch2D MG level 1", 2, 2, _nbr_T(notch_l1)),
+        ("3a", "cube n=32 mixed u/p", 3, 4, *cube),
+        ("3a", "cube n=32 isotropic_elastic", 3, 3, *cube),
+        ("3a", "notch2D h=0.004 ndpn 2", 2, 2, *notch),
+        ("3a", "notch2D h=0.004 ndpn 3", 2, 3, *notch),
+        ("3c", "cube MG fine p block", 1, 1, *cube_fine),
+        ("3c", "cube MG level 1 u", 3, 3, *cl1),
+        ("3c", "cube MG level 1 p", 1, 1, *cl1),
+        ("3c", "notch2D MG level 1", 2, 2, *notch_l1),
     ]
-    pc, pn = _part_nbr_T(cube), _part_nbr_T(notch)
-    out += [("3c per part cube n=32 ndpn 4", 4, 4, pc),
-            ("3c per part notch2D h=0.004 ndpn 3", 3, 3, pn),
-            ("3c per part notch2D h=0.004 ndpn 2", 2, 2, pn)]
+    pc, pn = _part_nbr_T(cube_m), _part_nbr_T(notch_m)
+    out += [("3c per part", "cube n=32 ndpn 4, 8 parts", 4, 4, pc, None),
+            ("3c per part", "notch2D h=0.004 ndpn 3, 8 parts", 3, 3, pn, None),
+            ("3c per part", "notch2D h=0.004 ndpn 2, 8 parts", 2, 2, pn, None)]
     return out
 
 
-def build(old: str | None) -> dict:
-    """{tag: the c8_ell_spmv of that build}: "rule", "G1" .. "G8" and,
-    with `old`, "old"."""
+def build(old: dict) -> dict:
+    """{direction: {tag: the C entry of that build}}: tags "rule", "G1" ..
+    "G8" and, where `old[direction]` names a file, "old"."""
     out = kernels.BUILD_DIR / "ell_sweep"
     out.mkdir(parents=True, exist_ok=True)
-    src = kernels.CSRC / "ell_spmv.cu"
-    todo = {"rule": (src, ())}
-    todo.update({f"G{G}": (src, (f"-DC8_ELL_LANES={G}",)) for G in LANES})
-    if old:
-        todo["old"] = (Path(old).resolve(), ())
     nvcc, procs = kernels.nvcc_path(), {}
-    for tag, (path, extra) in todo.items():
-        cmd = [nvcc, *kernels._flags("ell_spmv"), *extra, "-I", str(kernels.CSRC),
-               "-o", str(out / f"{tag}.so"), str(path)]
-        procs[tag] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                      text=True)
-    fns = {}
-    for tag, proc in procs.items():
+    for direction, (name, *_) in SOURCES.items():
+        src = kernels.CSRC / f"{name}.cu"
+        todo = {"rule": (src, ())}
+        todo.update({f"G{G}": (src, (f"-DC8_ELL_LANES={G}",)) for G in LANES})
+        if old.get(direction):
+            todo["old"] = (Path(old[direction]).resolve(), ())
+        for tag, (path, extra) in todo.items():
+            cmd = [nvcc, *kernels._flags(name), *extra, "-I", str(kernels.CSRC),
+                   "-o", str(out / f"{name}-{tag}.so"), str(path)]
+            procs[direction, tag] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {d: {} for d in SOURCES}
+    for (direction, tag), proc in procs.items():
+        name, symbol, _ = SOURCES[direction]
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {tag}:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(out / f"{tag}.so"))
+            raise RuntimeError(f"nvcc failed for {name} {tag}:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(out / f"{name}-{tag}.so"))
         lib.c8_error_string.argtypes = [ctypes.c_int]
         lib.c8_error_string.restype = ctypes.c_char_p
-        fn = lib.c8_ell_spmv
-        fn.argtypes = ARGTYPES
+        fn = getattr(lib, symbol)
+        # the transposed builds of this tree take tr_T after nbr_T
+        n_maps = 2 if direction == "transposed" and tag != "old" else 1
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * (4 + n_maps)
         fn.restype = ctypes.c_int
-        fns[tag] = (fn, lib)
+        fns[direction][tag] = (fn, lib, n_maps)
     return fns
 
 
-def device_ms(call, reps: int, flush=None, tries: int = 3) -> float:
-    """Device time per call of the kernels named ell_spmv_kernel, under
+def device_ms(call, reps: int, kernel: str, flush=None, tries: int = 3) -> float:
+    """Device time per call of the kernels whose name holds `kernel`, under
     torch.profiler over `reps` calls, each after `flush()` when one is
     given.  A session that records none of them (one of some 300 did,
     on an H100 with torch 2.11) is run again, up to `tries` sessions."""
@@ -153,48 +169,61 @@ def device_ms(call, reps: int, flush=None, tries: int = 3) -> float:
             torch.cuda.synchronize()
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and "ell_spmv_kernel" in e.key)
+                 and kernel in e.key)
         if us > 0:
             return us / 1e3 / reps
-    raise RuntimeError(f"{tries} profiler sessions show no device time of ell_spmv_kernel")
+    raise RuntimeError(f"{tries} profiler sessions show no device time of {kernel}")
 
 
-def sweep_shape(fns, label, dim, ndpn, nbr_np, dtype, reps, buf):
+def sweep_shape(fns, direction, kernel, label, dim, ndpn, nbr_np, tr_np, dtype, reps, buf):
     dev = torch.device("cuda", torch.cuda.current_device())
     K, N = nbr_np.shape
     nbr_T = torch.as_tensor(nbr_np, dtype=torch.int32, device=dev)
+    tr_T = None if tr_np is None else torch.as_tensor(tr_np, dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     A_T = torch.randn((K, ndpn, ndpn, N), generator=gen, device=dev, dtype=torch.float64)
     x = torch.randn(N * ndpn, generator=gen, device=dev, dtype=torch.float64)
     A_T, x = A_T.to(dtype), x.to(dtype)
-    y_plain = (ell_spmv_plain(A_T, nbr_T, x, dim) if ndpn > dim
-               else level_ell_spmv_plain(A_T, nbr_T, x, ndpn))
+    if direction == "transposed":
+        y_plain = ell_spmv_T_plain(A_T, nbr_T, x, dim)
+    elif ndpn > dim:
+        y_plain = ell_spmv_plain(A_T, nbr_T, x, dim)
+    else:
+        y_plain = level_ell_spmv_plain(A_T, nbr_T, x, ndpn)
     scale = y_plain.abs().max().item()
     y = torch.empty_like(x)
+    name = SOURCES[direction][2]
 
-    def call(fn, lib):
-        err = fn(dev.index, kernels.dtype_code(dtype), dim, ndpn, N, K, A_T.data_ptr(),
-                 nbr_T.data_ptr(), x.data_ptr(), y.data_ptr(), kernels.stream_ptr(dev))
+    def call(fn, lib, n_maps):
+        maps = (nbr_T.data_ptr(),) if n_maps == 1 else (nbr_T.data_ptr(), tr_T.data_ptr())
+        if direction == "transposed" and n_maps == 1:
+            y.zero_()  # the old scatter form adds into y
+        err = fn(dev.index, kernels.dtype_code(dtype), dim, ndpn, N, K, A_T.data_ptr(), *maps,
+                 x.data_ptr(), y.data_ptr(), kernels.stream_ptr(dev))
         if err != 0:
-            raise RuntimeError(f"ell_spmv: CUDA error {err} ({lib.c8_error_string(err).decode()})")
+            raise RuntimeError(f"{name}: CUDA error {err} ({lib.c8_error_string(err).decode()})")
 
     w = A_T.element_size()
     filled = int((nbr_T < N).sum())
+    # the filled slots' A_T blocks, nbr_T, x and y (tr_T not: the gather's
+    # overhead, not the function's work)
     nbytes = filled * ndpn * ndpn * w + K * N * 4 + 2 * N * ndpn * w
-    rec = dict(shape=label, dtype=str(dtype).split(".")[1], dim=dim, ndpn=ndpn, N=N, K=K,
-               bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, builds={})
+    rec = dict(direction=direction, kernel=kernel, shape=label, dtype=str(dtype).split(".")[1],
+               dim=dim, ndpn=ndpn, N=N, K=K, bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+               builds={})
     ok, ys = True, {}
-    for tag, (fn, lib) in fns.items():
-        call(fn, lib)
+    for tag, (fn, lib, n_maps) in fns.items():
+        call(fn, lib, n_maps)
         torch.cuda.synchronize()
         ys[tag] = y.clone()
         err = (y - y_plain).abs().max().item() / scale
         ok &= err <= LIMITS[dtype]
+        one = lambda: call(fn, lib, n_maps)  # noqa: E731
         rec["builds"][tag] = dict(
             rel_err=err,
-            cold_ms=device_ms(lambda: call(fn, lib), reps, lambda: buf.sum()),
-            dirty_ms=device_ms(lambda: call(fn, lib), reps, lambda: buf.zero_()),
-            warm_ms=device_ms(lambda: call(fn, lib), reps),
+            cold_ms=device_ms(one, reps, name, lambda: buf.sum()),
+            dirty_ms=device_ms(one, reps, name, lambda: buf.zero_()),
+            warm_ms=device_ms(one, reps, name),
         )
     rec["rule_G"] = next((G for G in LANES if torch.equal(ys[f"G{G}"], ys["rule"])), None)
     rec["ok"] = ok
@@ -204,22 +233,27 @@ def sweep_shape(fns, label, dim, ndpn, nbr_np, dtype, reps, buf):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", help="an earlier csrc/ell_spmv.cu to time beside this one")
+    ap.add_argument("--old-T", help="an earlier csrc/ell_spmv_T.cu (the scatter form, "
+                                    "without tr_T) to time beside this one")
     ap.add_argument("--reps", type=int, default=30)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ell_sweep: no CUDA device", file=sys.stderr)
         return 1
-    fns = build(args.old)
+    fns = build({"forward": args.old, "transposed": args.old_T})
     # 256 MB read or written before each cold call: five times the
     # H100's 50 MB L2
     buf = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
     ok = True
-    for label, dim, ndpn, nbr_np in shapes():
-        for dtype in (torch.float64, torch.float32):
-            good, rec = sweep_shape(fns, label, dim, ndpn, nbr_np, dtype, args.reps, buf)
-            ok &= good
-            print(json.dumps(rec), flush=True)
-            torch.cuda.empty_cache()
+    for kernel, label, dim, ndpn, nbr_np, tr_np in shapes():
+        runs = [("forward", kernel)] + ([] if tr_np is None else [("transposed", "3b")])
+        for direction, kname in runs:
+            for dtype in (torch.float64, torch.float32):
+                good, rec = sweep_shape(fns[direction], direction, kname, label, dim, ndpn,
+                                        nbr_np, tr_np, dtype, args.reps, buf)
+                ok &= good
+                print(json.dumps(rec), flush=True)
+                torch.cuda.empty_cache()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip())

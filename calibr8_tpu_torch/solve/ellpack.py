@@ -9,13 +9,17 @@ every apply is scatter-free:
                                      trailing layout (node index last)
   nbr_T   (K, n_nodes) int32         column node of each slot; the pad
                                      slots hold n_nodes
+  tr_T    (K, n_nodes) int32         slot of node c in row nbr_T[t, c]
+                                     (the transposed slot map; 0 in the
+                                     pad slots)
 
   y[n] = sum_s A[s, :, :, n] @ x[nbr[n, s]]
 
 The apply is the ell_spmv kernel (csrc/ell_spmv.cu) on the card and its
 plain version on the CPU; the transposed apply y = A^T x of the adjoint
-solves is the ell_spmv_T kernel (csrc/ell_spmv_T.cu) on the same A_T.  Slots are packed densely per row (sorted
-column order); calibr8_tpu's stencil canonicalization
+solves is the ell_spmv_T kernel (csrc/ell_spmv_T.cu) on the same A_T, a
+gather over each output node's own row through tr_T.  Slots are packed
+densely per row (sorted column order); calibr8_tpu's stencil canonicalization
 (solve/ellpack.py:70-111 there) served the TPU's static-slice gather and
 is not carried over.  Assembly A_T <- J_T is one index_add_ over the
 host-built flat slot ids (the scatter-offsets analog), once per Newton
@@ -44,10 +48,42 @@ from calibr8_tpu_torch import kernels
 from calibr8_tpu_torch.fem.bcs import apply_dbcs_matvec
 
 
+def transposed_slots(nbr) -> np.ndarray:
+    """The transposed slot map of a node-block ELL pattern nbr (n, K)
+    int32, pad id n: tr (n, K) int32 with tr[c, t] the slot of c in row
+    m = nbr[c, t], so that nbr[m, tr[c, t]] == c on every filled slot.
+    The pad slots hold 0.  y = A^T x then gathers over node c's own row:
+    y[c] = sum_t A[m, tr[c, t]]^T x[m] (kernel 3b).  Raises ValueError
+    where the pattern is not structurally symmetric (c in row m but m not
+    in row c)."""
+    nbr = np.asarray(nbr)
+    n, K = nbr.shape
+    flat = nbr.reshape(-1).astype(np.int64)
+    filled = np.flatnonzero(flat < n)
+    rows, cols, slots = filled // K, flat[filled], filled % K
+    key = rows * n + cols
+    order = np.argsort(key, kind="stable")
+    skey = key[order]
+    # where the pair (m, c) of each filled (c, m) sits
+    mirror = cols * n + rows
+    pos = np.searchsorted(skey, mirror)
+    found = pos < len(skey)
+    found[found] = skey[pos[found]] == mirror[found]
+    if not found.all():
+        i = int(np.flatnonzero(~found)[0])
+        raise ValueError(f"the ELL pattern is not symmetric: node {int(cols[i])} is in row "
+                         f"{int(rows[i])}, but row {int(cols[i])} does not hold {int(rows[i])}")
+    tr = np.zeros(n * K, dtype=np.int32)
+    tr[filled] = slots[order][pos]
+    return tr.reshape(n, K)
+
+
 def ell_maps_from_conn(conn, n_nodes: int) -> dict:
     """Host-side maps from a connectivity (n_e, npe):
 
       nbr        (n_nodes, K) int32  column node per slot, pad = n_nodes
+      tr         (n_nodes, K) int32  slot of node c in row nbr[c, t]
+                                     (transposed_slots), 0 in the pads
       ell_ids_T  (npe*npe*n_e,)      slot-major position s*n_nodes + n of
                                      element entry (e, a, b), in (a, b, e)
                                      order (assemble_ell_T)
@@ -72,16 +108,17 @@ def ell_maps_from_conn(conn, n_nodes: int) -> dict:
     nbr[u_i, slot] = u_j.astype(np.int32)
     ell_idx_T = (slot * n_nodes + u_i)[inv].reshape(n_e, npe, npe)
     ell_ids_T = np.ascontiguousarray(ell_idx_T.transpose(1, 2, 0).reshape(-1))
-    return dict(nbr=nbr, ell_ids_T=ell_ids_T, K=K)
+    return dict(nbr=nbr, tr=transposed_slots(nbr), ell_ids_T=ell_ids_T, K=K)
 
 
 def ell_device_maps(conn, n_nodes: int, device) -> dict:
     """ell_maps_from_conn with the device tensors the operators use:
-    nbr_T (K, n) int32 and ids_T int64."""
+    nbr_T and tr_T (K, n) int32, ids_T int64."""
     maps = ell_maps_from_conn(conn, n_nodes)
-    maps["nbr_T"] = torch.as_tensor(
-        np.ascontiguousarray(maps["nbr"].T), dtype=torch.int32, device=device
-    )
+    for key in ("nbr", "tr"):
+        maps[f"{key}_T"] = torch.as_tensor(
+            np.ascontiguousarray(maps[key].T), dtype=torch.int32, device=device
+        )
     maps["ids_T"] = torch.as_tensor(maps["ell_ids_T"], dtype=torch.int64, device=device)
     return maps
 
@@ -116,13 +153,15 @@ def assemble_ell_T(J_T, disc):
     return assemble_ell_T_blocks(J_T, maps["ids_T"], maps["K"], disc.n_nodes, disc.ndpn)
 
 
-_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 5
+# the C entries' argument types by the number of maps (nbr_T; nbr_T, tr_T)
+_ARGTYPES = {k: [ctypes.c_int] * 6 + [ctypes.c_void_p] * (4 + k) for k in (1, 2)}
 
 
-def _check_ell(A_T, nbr_T, x, dim: int):
+def _check_ell(A_T, nbr_T, x, dim: int, tr_T=None):
     """Check the inputs of an ELL kernel on tensors of any device: A_T
-    (K, ndpn, ndpn, n) with ndpn = dim or dim + 1, nbr_T (K, n) int32, x
-    (n * ndpn,) of A_T's dtype, all three contiguous on x's device.
+    (K, ndpn, ndpn, n) with ndpn = dim or dim + 1, nbr_T (K, n) int32,
+    tr_T (when given) the same, x (n * ndpn,) of A_T's dtype, all
+    contiguous on x's device.
     Raises ValueError naming the argument; returns (K, ndpn, n).  The
     messages are formatted only on failure: formatted eagerly they cost
     more host time a call than the kernel takes on the card."""
@@ -132,14 +171,16 @@ def _check_ell(A_T, nbr_T, x, dim: int):
     K, ndpn, _, n = A_T.shape
     if ndpn != dim and ndpn != dim + 1:
         req(False, f"A_T's ndpn {ndpn} does not fit dim {dim}")
-    if nbr_T.shape != (K, n) or nbr_T.dtype != torch.int32:
-        req(False, f"nbr_T is {tuple(nbr_T.shape)} {nbr_T.dtype}, want ({K}, {n}) torch.int32")
+    maps = (("nbr_T", nbr_T),) if tr_T is None else (("nbr_T", nbr_T), ("tr_T", tr_T))
+    for arg, t in maps:
+        if t.shape != (K, n) or t.dtype != torch.int32:
+            req(False, f"{arg} is {tuple(t.shape)} {t.dtype}, want ({K}, {n}) torch.int32")
     if x.shape != (n * ndpn,):
         req(False, f"x has shape {tuple(x.shape)}, want ({n * ndpn},)")
     if A_T.dtype != x.dtype:
         req(False, f"A_T is {A_T.dtype}, x is {x.dtype}")
     dev = x.get_device()
-    for arg, t in (("A_T", A_T), ("nbr_T", nbr_T), ("x", x)):
+    for arg, t in (("A_T", A_T), *maps, ("x", x)):
         if t.get_device() != dev:
             req(False, f"{arg} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -147,14 +188,16 @@ def _check_ell(A_T, nbr_T, x, dim: int):
     return K, ndpn, n
 
 
-def _launch(name, symbol, A_T, nbr_T, x, dim, y, counter=None):
+def _launch(name, symbol, A_T, nbr_T, x, dim, y, counter=None, tr_T=None):
     """Check the inputs of an ELL kernel of library `name` and launch it
-    into y; the launch counts under `counter` (default: `name`)."""
-    K, ndpn, n = _check_ell(A_T, nbr_T, x, dim)
+    into y; the launch counts under `counter` (default: `name`).  tr_T,
+    when given, goes to the kernel after nbr_T."""
+    K, ndpn, n = _check_ell(A_T, nbr_T, x, dim, tr_T)
     dev = x.device
-    fn = kernels.function(name, symbol, _ARGTYPES)
+    maps = (nbr_T.data_ptr(),) if tr_T is None else (nbr_T.data_ptr(), tr_T.data_ptr())
+    fn = kernels.function(name, symbol, _ARGTYPES[len(maps)])
     err = fn(
-        dev.index, kernels.dtype_code(x.dtype), dim, ndpn, n, K, A_T.data_ptr(), nbr_T.data_ptr(),
+        dev.index, kernels.dtype_code(x.dtype), dim, ndpn, n, K, A_T.data_ptr(), *maps,
         x.data_ptr(), y.data_ptr(), kernels.stream_ptr(dev),
     )
     kernels.check(name, err)
@@ -172,14 +215,18 @@ def ell_spmv(A_T, nbr_T, x, dim: int):
     return _launch("ell_spmv", "c8_ell_spmv", A_T, nbr_T, x, dim, torch.empty_like(x))
 
 
-def ell_spmv_T(A_T, nbr_T, x, dim: int):
-    """y = A^T x for the same matrix and layout as ell_spmv (kernel 3b).
-    On CUDA tensors this launches the kernel (or raises); on CPU tensors
-    it runs the plain version."""
+def ell_spmv_T(A_T, nbr_T, tr_T, x, dim: int):
+    """y = A^T x for the same matrix and layout as ell_spmv (kernel 3b),
+    with tr_T the pattern's transposed slot map (ell_device_maps).  On
+    CUDA tensors this launches the kernel, which writes every entry of y
+    (or raises, also where tr_T is None); on CPU tensors it runs the plain
+    version, which does not read tr_T."""
     if not x.is_cuda:
         return ell_spmv_T_plain(A_T, nbr_T, x, dim)
-    # zeros, not empty: the kernel adds into y
-    return _launch("ell_spmv_T", "c8_ell_spmv_T", A_T, nbr_T, x, dim, torch.zeros_like(x))
+    if tr_T is None:
+        kernels.require(False, "ell_spmv_T needs tr_T, the transposed slot map (ell_device_maps)")
+    return _launch("ell_spmv_T", "c8_ell_spmv_T", A_T, nbr_T, x, dim, torch.empty_like(x),
+                   tr_T=tr_T)
 
 
 def level_ell_spmv(A_T, nbr_T, x, m: int):
@@ -263,7 +310,8 @@ def ell_spmv_T_plain(A_T, nbr_T, x, dim: int):
     """The plain PyTorch version of ell_spmv_T: the per-slot products
     Gt[s, j, n] = sum_i A[s, i, j, n] x[n, i], then the transpose of the
     neighbour gather, an index_add_ over nbr_T into a node matrix with
-    one extra row that takes the pad slots' (zero) products."""
+    one extra row that takes the pad slots' products.  It does not use
+    tr_T, so it is an oracle of the kernel and of the map alike."""
     K, ndpn, _, n = A_T.shape
     X = _node_matrix(x, n, dim, ndpn)
     Gt = torch.einsum("sijn,ni->snj", A_T, X)  # (K, n, ndpn)
@@ -285,11 +333,15 @@ class EllOperator:
         self.bc_dofs = bc_dofs
         self.transpose = transpose
         self.A_T = assemble_ell_T(J_T, disc)
-        self.nbr_T = build_ell_maps(disc)["nbr_T"]
+        maps = build_ell_maps(disc)
+        self.nbr_T, self.tr_T = maps["nbr_T"], maps["tr_T"]
 
     def __call__(self, v):
-        apply = ell_spmv_T if self.transpose else ell_spmv
-        y = apply(self.A_T, self.nbr_T, v, self.disc.spec.dim)
+        d = self.disc.spec.dim
+        if self.transpose:
+            y = ell_spmv_T(self.A_T, self.nbr_T, self.tr_T, v, d)
+        else:
+            y = ell_spmv(self.A_T, self.nbr_T, v, d)
         return apply_dbcs_matvec(y, self.diag, v, self.bc_dofs)
 
 

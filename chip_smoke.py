@@ -1222,14 +1222,17 @@ def check_ell_spmv_T(label, disc, J_T, diag_e, bc_dofs, results):
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     v = torch.randn(n_dofs, generator=gen, device=DEVICE, dtype=disc.dtype)
     A_T = assemble_ell_T(J_T, disc)
-    nbr_T = build_ell_maps(disc)["nbr_T"]
+    maps = build_ell_maps(disc)
+    nbr_T, tr_T = maps["nbr_T"], maps["tr_T"]
     K, ndpn, _, N = A_T.shape
-    yk = ell_spmv_T(A_T, nbr_T, v, d)
+    yk = ell_spmv_T(A_T, nbr_T, tr_T, v, d)
     yp = ell_spmv_T_plain(A_T, nbr_T, v, d)
     torch.cuda.synchronize()
     err, aerr = rel_err(yk, yp)
-    ms = time_ms(lambda: ell_spmv_T(A_T, nbr_T, v, d), 30)
-    dms = device_ms(lambda: ell_spmv_T(A_T, nbr_T, v, d), 30, "ell_spmv_T_kernel")
+    # two calls give the same y bit for bit (a gather, no atomics)
+    repeat = torch.equal(yk, ell_spmv_T(A_T, nbr_T, tr_T, v, d))
+    ms = time_ms(lambda: ell_spmv_T(A_T, nbr_T, tr_T, v, d), 30)
+    dms = device_ms(lambda: ell_spmv_T(A_T, nbr_T, tr_T, v, d), 30, "ell_spmv_T_kernel")
     pms = time_ms(lambda: ell_spmv_T_plain(A_T, nbr_T, v, d), 10)
     csr, nnz_slots = ell_csr(A_T, nbr_T, d, n_dofs, transpose=True)
     lms = time_ms(lambda: torch.mv(csr, v), 30)
@@ -1237,22 +1240,24 @@ def check_ell_spmv_T(label, disc, J_T, diag_e, bc_dofs, results):
     err_lib = rel_err(torch.mv(csr, v), yp)[0]
     del csr
     # the A_T blocks of the filled slots (the kernel skips the pad slots'
-    # blocks), all of nbr_T and x read once, y written once
+    # blocks), all of nbr_T and x read once, y written once; tr_T is the
+    # gather's overhead, not the function's work
     nbytes = nnz_slots * ndpn * ndpn * w + K * N * 4 + 2 * n_dofs * w
     b_ms, b_by = bound(nbytes, 2.0 * ndpn * ndpn * nnz_slots, dn)
     diag = torch.zeros(n_dofs, dtype=disc.dtype, device=DEVICE).index_add_(
         0, disc.edofs.reshape(-1), diag_e.reshape(-1))
     op_err = rel_err(EllOperator(disc, J_T, diag, bc_dofs, transpose=True)(v),
                      EllOperator(disc, J_T.transpose(0, 1).contiguous(), diag, bc_dofs)(v))[0]
-    good = err <= lim and op_err <= lim
+    good = err <= lim and op_err <= lim and repeat
     rec = dict(kernel="ell_spmv_T", case=label, dtype=dn, rel_err=err, max_abs_err=aerr,
                operator_rel_err=op_err, K=K, ndpn=ndpn, filled_slots=nnz_slots, ms=ms,
                device_ms=dms, plain_ms=pms, library_ms=lms, library_device_ms=ldms,
-               library_rel_err=err_lib, bound_ms=b_ms, bound_by=b_by, limit=lim, ok=good)
+               library_rel_err=err_lib, bound_ms=b_ms, bound_by=b_by, limit=lim,
+               repeatable=repeat, ok=good)
     log(json.dumps(rec))
     if not good:
         log(f"FAIL ell_spmv_T {label} {dn}: rel err {err:.3e}, operator {op_err:.3e} "
-            f"(limit {lim:.0e})")
+            f"(limit {lim:.0e}), two calls equal {repeat}")
     results[("ell_spmv_T", label, dn)] = rec
     return good
 
@@ -2029,14 +2034,15 @@ def phase_cli():
     return ok
 
 
-def check_level_apply(label, A_T, nbr_T, m, results):
+def check_level_apply(label, A_T, nbr_T, tr_T, m, results):
     """Kernel 3c (the multigrid level apply, LevelEllOperator) against its
     plain version on one level's assembled matrix A_T (K, m, m, n), in
     float64 and (the same matrix rounded) float32, forward, with the
-    ell_spmv_T kernel's level instance held the same way; each with its
-    time, bound (the filled slots' blocks, nbr_T and the vectors) and the
-    torch.sparse CSR mv of the same matrix; the forward apply also gives
-    the same y bit for bit in two calls."""
+    ell_spmv_T kernel's level instance (through the level's transposed
+    slot map tr_T) held the same way; each with its time, bound (the
+    filled slots' blocks, nbr_T and the vectors) and the torch.sparse CSR
+    mv of the same matrix; both directions also give the same y bit for
+    bit in two calls."""
     from calibr8_tpu_torch.solve.ellpack import (
         ell_spmv_T, ell_spmv_T_plain, level_ell_spmv, level_ell_spmv_plain,
     )
@@ -2054,8 +2060,8 @@ def check_level_apply(label, A_T, nbr_T, m, results):
         for direction, fk, fp, kname in (
             ("forward", lambda: level_ell_spmv(A, nbr_T, v, m),
              lambda: level_ell_spmv_plain(A, nbr_T, v, m), "ell_spmv_kernel"),
-            ("transposed", lambda: ell_spmv_T(A, nbr_T, v, m), lambda: ell_spmv_T_plain(A, nbr_T, v, m),
-             "ell_spmv_T_kernel"),
+            ("transposed", lambda: ell_spmv_T(A, nbr_T, tr_T, v, m),
+             lambda: ell_spmv_T_plain(A, nbr_T, v, m), "ell_spmv_T_kernel"),
         ):
             yp = fp()
             yk = fk()
@@ -2072,10 +2078,9 @@ def check_level_apply(label, A_T, nbr_T, m, results):
                      device_ms=device_ms(fk, 50, kname), plain_ms=time_ms(fp, 10), library_ms=lms,
                      library_device_ms=ldms, library_rel_err=err_lib, bound_ms=b_ms,
                      bound_by=b_by, filled_slots=nnz_slots)
-            if direction == "forward":
-                # two calls give the same y bit for bit (no atomics)
-                r["repeatable"] = torch.equal(yk, fk())
-                good = good and r["repeatable"]
+            # two calls give the same y bit for bit (no atomics)
+            r["repeatable"] = torch.equal(yk, fk())
+            good = good and r["repeatable"]
             ok &= good
             rec[direction] = dict(r, ok=good)
         log(json.dumps(rec))
@@ -2106,16 +2111,16 @@ def phase_level_kernels(meshes, results):
         _, J_T, diag, _, _, _ = prob.assembler.assemble(x, xi_prev, prob.params0, x_prev=x_prev)
         bc_dofs = prob.dbcs.arrays(1.0, 1)[0]
         st = mg.make_state(J_T, diag, bc_dofs, EllOperator(disc, J_T, diag, bc_dofs))
-        lv = mg._pairs[0]["maps"]["nbr_T"]
+        lv = mg._pairs[0]["maps"]
         n1 = mg._pairs[0]["n_parent_nodes"]
         cases = [(f"{name} level 1 u (m={disc.spec.dim}, {n1} nodes)",
                   st["u"]["levels"][0]["A_T"], lv, disc.spec.dim)]
         if disc.spec.mixed:
             cases += [(f"{name} level 1 p (m=1, {n1} nodes)", st["p"]["levels"][0]["A_T"], lv, 1),
                       (f"{name} fine p block (m=1, {disc.n_nodes} nodes)", st["p_ell_A_T"],
-                       build_ell_maps(disc)["nbr_T"], 1)]
-        for label, A_T, nbr_T, m in cases:
-            ok &= check_level_apply(label, A_T, nbr_T, m, results)
+                       build_ell_maps(disc), 1)]
+        for label, A_T, maps, m in cases:
+            ok &= check_level_apply(label, A_T, maps["nbr_T"], maps["tr_T"], m, results)
         del prob, disc, mg, st, J_T
         torch.cuda.empty_cache()
     return ok

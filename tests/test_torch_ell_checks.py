@@ -1,7 +1,8 @@
 """The input checks of the ELL kernels' wrappers (solve/ellpack.py
 _check_ell, run before every launch of ell_spmv.cu and ell_spmv_T.cu)
 on CPU tensors: each bad input raises ValueError with a message that
-names the argument, and a good input passes with (K, ndpn, n)."""
+names the argument, and a good input passes with (K, ndpn, n).  The
+transposed kernel's cases also pass tr_T, its transposed slot map."""
 
 import pytest
 import torch
@@ -18,8 +19,12 @@ def good():
     return A_T, nbr_T, x, DIM
 
 
-def spoil(i, value):
-    args = list(good())
+def good_T():
+    return (*good(), torch.zeros(K, N, dtype=torch.int32))
+
+
+def spoil(i, value, make=good):
+    args = list(make())
     args[i] = value(args[i])
     return args
 
@@ -36,6 +41,11 @@ CASES = {
     "x not contiguous": (lambda: spoil(2, lambda x: torch.zeros(2 * x.numel(),
                                                                 dtype=x.dtype)[::2]), "x"),
     "ndpn does not fit dim": (lambda: spoil(3, lambda d: d + 2), "dim"),
+    "good with tr_T": (good_T, None),
+    "tr_T int64": (lambda: spoil(4, lambda t: t.long(), good_T), "tr_T"),
+    "tr_T shape": (lambda: spoil(4, lambda t: t[:-1], good_T), "tr_T"),
+    "tr_T not contiguous": (lambda: spoil(4, lambda t: torch.zeros(N, K, dtype=torch.int32).T,
+                                          good_T), "tr_T"),
 }
 
 

@@ -38,8 +38,14 @@ MESHES = {
                              "mechanics_plane_stress"),
 }
 RTOL = 1e-13
-# the ELL apply and its transpose (kernels 3a and 3b)
-DIRECTIONS = {"forward": (ell_spmv, ell_spmv_plain), "transpose": (ell_spmv_T, ell_spmv_T_plain)}
+# the ELL apply and its transpose (kernels 3a and 3b), called on the ELL
+# maps (build_ell_maps) as (wrapper, plain)
+DIRECTIONS = {
+    "forward": (lambda A_T, maps, v, d: ell_spmv(A_T, maps["nbr_T"], v, d),
+                lambda A_T, maps, v, d: ell_spmv_plain(A_T, maps["nbr_T"], v, d)),
+    "transpose": (lambda A_T, maps, v, d: ell_spmv_T(A_T, maps["nbr_T"], maps["tr_T"], v, d),
+                  lambda A_T, maps, v, d: ell_spmv_T_plain(A_T, maps["nbr_T"], v, d)),
+}
 
 
 def _close(a, b, rtol=RTOL):
@@ -154,6 +160,6 @@ def test_ell_wrapper_is_plain_on_cpu(system, direction):
     wrapper, plain = DIRECTIONS[direction]
     td = system["tp"].disc
     A_T = assemble_ell_T(system["J_T"], td)
-    nbr_T = build_ell_maps(td)["nbr_T"]
+    maps = build_ell_maps(td)
     v = torch.tensor(system["v"])
-    assert torch.equal(wrapper(A_T, nbr_T, v, td.spec.dim), plain(A_T, nbr_T, v, td.spec.dim))
+    assert torch.equal(wrapper(A_T, maps, v, td.spec.dim), plain(A_T, maps, v, td.spec.dim))
