@@ -41,8 +41,13 @@ struct Dual {
   }
 };
 
+// the plain scalars that mix with duals as constants: the arithmetic
+// types, and a type that specializes scalar_like (a host harness's
+// operation-counting scalar)
 template <typename U>
-using if_arith = typename std::enable_if<std::is_arithmetic<U>::value, int>::type;
+struct scalar_like : std::is_arithmetic<U> {};
+template <typename U>
+using if_arith = typename std::enable_if<scalar_like<U>::value, int>::type;
 
 // value of a plain scalar or a dual
 template <typename T>

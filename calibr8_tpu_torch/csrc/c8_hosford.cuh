@@ -160,6 +160,9 @@ struct HypoHosford : HypoEigTwin<T, 7, HosfordOnTC<T>> {};
 // hypo_barlat (models/batched.py:1904-1953): params [E, nu, Y, a, K, S, D,
 // sp_* (9), dp_* (9)]
 template <typename T>
-struct HypoBarlat : HypoEigTwin<T, 25, BarlatOnTC<T>> {};
+struct HypoBarlat : HypoEigTwin<T, 25, BarlatOnTC<T>> {
+  // kernel 1b's lanes per element (c8_implicit.cuh implicit_team_lanes)
+  static constexpr int TEAM_LANES = 2;
+};
 
 }  // namespace c8

@@ -112,6 +112,8 @@ struct HypoTwin {
 // Y, R00, R11, R22, R01, R02, R12, S, D]
 template <typename T>
 struct HypoHill : HypoTwin<T, 3, 7, 11, true> {
+  // kernel 1b's lanes per element (c8_implicit.cuh implicit_team_lanes)
+  static constexpr int TEAM_LANES = sizeof(T) == 8 ? 4 : 1;
   template <typename S>
   using Pre = typename HypoTwin<T, 3, 7, 11, true>::template Pre<S>;
 
@@ -204,6 +206,7 @@ C8_HD S hypo2d_hill(const S* xi, const T* par, const Z& szz, S n2[3]) {
 // S, D, R00, R11, R22, R01]
 template <typename T>
 struct HypoHillPlaneStrain : HypoTwin<T, 2, 5, 9, true> {
+  static constexpr int TEAM_LANES = sizeof(T) == 8 ? 1 : 2;
   template <typename S>
   using Pre = typename HypoTwin<T, 2, 5, 9, true>::template Pre<S>;
 

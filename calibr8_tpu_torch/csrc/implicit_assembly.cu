@@ -18,24 +18,29 @@
 // The library is built without FMA contraction (kernels.EXTRA_FLAGS), so
 // that each operation rounds as the plain version's do.
 //
-// What bounds it on an H100: the stores, as in the analytic kernel.  J_T
-// is nde^2 words per element (16*16*8 = 2 KB for the 3D twins in
-// float64) against ~0.4-0.5 KB of inputs (x_prev's gather included for
-// the finite-deformation twins), so at 196,608 elements the kernel must
-// move ~0.5 GB (0.15 ms at 3.35 TB/s); the arithmetic, a few local
-// Newton iterations with nxi dual tangents and one condensation pass with
-// nxi + 9, is ~10^4 operations per element for small_hill, several times
-// that for hyper_J2 (each residual evaluation pushes the trial state
-// forward through two 3x3 products, a 3x3 inverse, log and exp) and for
+// What bounds it on an H100: the arithmetic.  J_T is nde^2 words per
+// element (16*16*8 = 2 KB for the 3D twins in float64) against ~0.4-0.5 KB
+// of inputs, ~0.5 GB at 196,608 elements (0.15 ms at 3.35 TB/s); the
+// operations of one element, counted on the host (implicit_cost.FLOPS),
+// are ~1.1e4 + 1.8e3 per local Newton update for small_hill, ~2.8e4 +
+// 4.7e3 for hyper_J2 (each residual pushes the trial state through two
+// 3x3 products, a 3x3 inverse, log and exp) and ~9.6e4 + 1.4e3 for
 // hypo_hill (whose condensation carries 16 tangents through three polar
-// factors of 6 iterations each).  The
-// design writes every output once, in the trailing layout (a warp's
-// stores of one J entry are consecutive), and reads the dofs straight from
-// the flat x through edofs_T.  One thread per element keeps the element's
-// state in registers; the duals of the 3D models exceed the 255 registers
-// a thread may hold, so they spill to local memory (ptxas reports the
-// spill).  Shared-memory staging, fewer live tangents and a warp per
-// element are later work.
+// factors of 6 iterations each), and float64 divides and functions are
+// long instruction sequences.  The library launches c8_implicit.cuh's
+// team kernel: G lanes per element (the model's TEAM_LANES, set from
+// `python -m calibr8_tpu_torch.implicit_sweep` on the card), each lane
+// carrying ceil(N / G) of the N tangents, the element's rows staged in
+// shared memory and stored in the trailing layout (a warp's stores of one
+// J entry are consecutive).  hypo_hill takes G = 4 in float64, where one
+// thread spilled 44 KB; hypo_hill_plane_strain G = 2 in float32; the other
+// instances G = 1, one thread per element (the lanes' repeated primal
+// values cost them more than the split tangents save).  It reads the dofs
+// straight from the flat x through edofs_T.  The team kernel gives
+// implicit_element's outputs bit for bit at every G
+// (tests/test_torch_implicit_team_host.py on the host, implicit_sweep.py
+// on the card, where --alt also holds the earlier thread-per-element
+// kernel to them).
 //
 // C interface, bound with ctypes (calibr8_tpu_torch/fem/fused_assembly.py).
 
@@ -60,7 +65,7 @@ extern "C" int c8_implicit_assembly(int device, int dtype, int model, int E, con
                                     double thick, double abs_tol, double fail_tol, void* R_T,
                                     void* J_T, void* xi_T, void* path, void* fail, void* iters,
                                     void* stream) {
-  return c8::implicit_entry<c8::SmallHill, c8::SmallHillPlaneStrain, c8::SmallHillPlaneStress,
+  return c8::implicit_team_entry<c8::SmallHill, c8::SmallHillPlaneStrain, c8::SmallHillPlaneStress,
                             c8::HyperJ2, c8::HyperJ2PlaneStrain, c8::HyperJ2PlaneStress,
                             c8::HypoHill, c8::HypoHillPlaneStrain, c8::HypoHillPlaneStress>(
       device, dtype, model, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params, es_ids, quad,

@@ -24,10 +24,10 @@
 // eigenvector selects, under up to 30 local Newton iterations of 7
 // tangents plus 4 line-search trials on plain T, and the condensation
 // carries 16 tangents through them (and, for the hypo twins, through
-// three polar factors of 6 iterations).  One thread per element keeps
-// the design of c8_implicit.cuh; the duals spill to local memory (ptxas
-// reports it).  A warp per element, or fewer live tangents, are later
-// work.
+// three polar factors of 6 iterations).  The library launches
+// c8_implicit.cuh's team kernel at G = 1 (the two models give no
+// TEAM_LANES): one thread per element, whose duals spill to local memory
+// (ptxas reports it).  A team of lanes for these twins is later work.
 //
 // C interface, bound with ctypes (calibr8_tpu_torch/fem/fused_assembly.py),
 // the same as c8_implicit_assembly's; model: 9 small_hosford, 10
@@ -44,7 +44,7 @@ extern "C" int c8_implicit_eig_assembly(int device, int dtype, int model, int E,
                                         double thick, double abs_tol, double fail_tol,
                                         void* R_T, void* J_T, void* xi_T, void* path, void* fail,
                                         void* iters, void* stream) {
-  return c8::implicit_entry<c8::SmallHosford, c8::HypoHosford>(
+  return c8::implicit_team_entry<c8::SmallHosford, c8::HypoHosford>(
       device, dtype, model - 9, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params, es_ids,
       quad, npts, stab_half, thick, abs_tol, fail_tol, R_T, J_T, xi_T, path, fail, iters, stream);
 }

@@ -17,9 +17,10 @@
 // notch2D h=0.004.  The arithmetic: up to 20 local Newton iterations of 6
 // tangents and a condensation of 10, each residual running the network
 // twice (NN(in_scale alpha) on duals, NN(0) on plain T), a few exp per
-// hidden unit.  One thread per element keeps the design of
-// c8_implicit.cuh; the network's activations sit in local memory (their
-// widths are known at run time only).  A warp per element is later work.
+// hidden unit.  The library launches c8_implicit.cuh's team kernel at G =
+// 1 (the model gives no TEAM_LANES), one thread per element; the network's
+// activations sit in local memory (their widths are known at run time
+// only).  A team of lanes for it is later work.
 //
 // C interface, bound with ctypes (calibr8_tpu_torch/fem/fused_assembly.py):
 // c8_implicit_assembly's arguments (model 12), then the network: act
@@ -63,7 +64,7 @@ extern "C" int c8_implicit_hybrid_assembly(
   err = cudaMemcpyToSymbolAsync(c8::c8_net_dev, &nt, sizeof(nt), 0, cudaMemcpyHostToDevice,
                                 (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  return c8::implicit_entry<c8::HybridHyperJ2PlaneStress>(
+  return c8::implicit_team_entry<c8::HybridHyperJ2PlaneStress>(
       device, dtype, model - 12, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params, es_ids,
       quad, npts, stab_half, thick, abs_tol, fail_tol, R_T, J_T, xi_T, path, fail, iters, stream);
 }

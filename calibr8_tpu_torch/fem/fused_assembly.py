@@ -242,6 +242,24 @@ def implicit_assembly(disc, bmodel, x, xi_prev, params_all, newton_iters=None, x
                    disc.h, params_all, disc.es_ids32, newton_iters=newton_iters)
 
 
+def implicit_args(spec, bmodel, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params_all,
+                  es_ids32, outs, newton_iters=None):
+    """The arguments of an implicit library's C entry (the hybrid's network
+    arguments follow them) for checked CUDA tensors and the outputs `outs`
+    = (R_T, J_T, xi_T, path, fail); edofs_T None for the element-level
+    entry."""
+    quad, npts = _quad_array(spec.dim)
+    return (x.device.index, kernels.dtype_code(x.dtype), KERNEL_MODEL_ID[bmodel.name], E,
+            x.data_ptr(), (x if x_prev is None else x_prev).data_ptr(),
+            None if edofs_T is None else edofs_T.data_ptr(), xi_prev.data_ptr(),
+            gN_T.data_ptr(), detJ.data_ptr(), h.data_ptr(), params_all.data_ptr(),
+            es_ids32.data_ptr(), ctypes.cast(quad, ctypes.c_void_p), npts,
+            float(spec.stab_multiplier) * 0.5, float(spec.thickness), float(bmodel.abs_tol),
+            max(bmodel.abs_tol * 10.0, 1e-30), *(t.data_ptr() for t in outs),
+            None if newton_iters is None else newton_iters.data_ptr(),
+            kernels.stream_ptr(x.device))
+
+
 def _launch(spec, bmodel, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params_all, es_ids32,
             newton_iters=None, counter=None):
     """Launch the twin's library on checked CUDA arguments into fresh
@@ -249,7 +267,7 @@ def _launch(spec, bmodel, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params_
     (csrc/fused_assembly.cu) or the twin's implicit one (IMPLICIT_LIB).
     edofs_T None: x (and x_prev) hold the (nde, E) element columns (the
     element-level entry).  The launch counts under `counter`, by default
-    the library's name."""
+    the library's name, and by model in kernels.model_launches."""
     R_T, J_T, xi_T, path, fail = _outputs(spec, bmodel, E, x.dtype, x.device)
     quad, npts = _quad_array(spec.dim)
     ed = None if edofs_T is None else edofs_T.data_ptr()
@@ -272,20 +290,13 @@ def _launch(spec, bmodel, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params_
             net = hybrid_net_args(bmodel, params_all)
             argtypes = _IMPLICIT_ARGTYPES + _HYBRID_ARGTYPES
         fn = kernels.function(lib, symbol, argtypes)
-        err = fn(
-            x.device.index, kernels.dtype_code(x.dtype), KERNEL_MODEL_ID[bmodel.name], E,
-            x.data_ptr(), (x if x_prev is None else x_prev).data_ptr(), ed, xi_prev.data_ptr(),
-            gN_T.data_ptr(), detJ.data_ptr(), h.data_ptr(),
-            params_all.data_ptr(), es_ids32.data_ptr(),
-            ctypes.cast(quad, ctypes.c_void_p), npts,
-            float(spec.stab_multiplier) * 0.5, float(spec.thickness), float(bmodel.abs_tol),
-            max(bmodel.abs_tol * 10.0, 1e-30),
-            R_T.data_ptr(), J_T.data_ptr(), xi_T.data_ptr(), path.data_ptr(), fail.data_ptr(),
-            None if newton_iters is None else newton_iters.data_ptr(),
-            kernels.stream_ptr(x.device), *net,
-        )
+        err = fn(*implicit_args(spec, bmodel, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h,
+                                params_all, es_ids32, (R_T, J_T, xi_T, path, fail),
+                                newton_iters), *net)
     kernels.check(lib, err)
     kernels.launches[counter or lib] += 1
+    key = (counter or lib, bmodel.name)
+    kernels.model_launches[key] = kernels.model_launches.get(key, 0) + 1
     return R_T, J_T, xi_T, path, fail
 
 

@@ -17,6 +17,8 @@ apply of the domain-decomposed solver (3c per part, parallel/dist.py),
 which launch the kernels of `ell_spmv.cu` on level or part shapes; and
 `assembly_elems`, the element-level entry of the assembly (kernel 1c),
 which launches the assembly libraries on pre-gathered element columns.
+The assembly libraries' launches are also counted by model, in
+`model_launches`.
 Kernel 1b, the implicit assembly, is four sources: `implicit_assembly.cu`
 (the Hill, hyper_J2 and hypo_hill families), `implicit_eig.cu` (the
 Hosford twins), `implicit_barlat.cu` (hypo_barlat) and
@@ -60,6 +62,9 @@ EXTRA_FLAGS = {name: ("-fmad=false",)
 COUNTERS = KERNELS + ("ell_spmv_level", "ell_spmv_part", "assembly_elems")
 
 launches = {name: 0 for name in COUNTERS}
+# the assembly libraries' launches split by model: (counter, model name) ->
+# count, added to beside `launches` where the wrapper launches
+model_launches: dict[tuple[str, str], int] = {}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _funcs: dict[str, object] = {}
@@ -68,6 +73,7 @@ _funcs: dict[str, object] = {}
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+    model_launches.clear()
 
 
 def nvcc_path() -> str:

@@ -1264,7 +1264,7 @@ class BatchedHypoBarlat(BatchedHypoHosford):
                               tuple(parT[16 + k] for k in range(9)), parT[3])
 
 
-def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
+def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None, trials=None):
     """The fixed-iteration local Newton of the implicit twins, per lane
     (calibr8_tpu models/batched.py:561-671).  It starts from the twin's
     first_guess (xi_prev, or the finite-deformation twins' elastic trial
@@ -1285,7 +1285,11 @@ def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
     every lane is done.  Returns (xiT, path, failed), path and failed (E,)
     int32, failed where ||C(xi)|| >= max(10 abs_tol, 1e-30) at the end.
     With `iters` an (E,) int32 tensor, each lane's number of iterations
-    before it was done (the CUDA kernel's count) is written there."""
+    before it was done (the CUDA kernel's count) is written there; with
+    `trials` one, each lane's line-search trials up to the accepted one
+    (all four where none was) over those iterations: the trials that the
+    sequential search needs, which the operations bound of the CUDA
+    kernel counts."""
     nxi = bm.nxi
     xi = bm.first_guess(xipT, gu, parT, gu_prev)
     dtype, E = xi.dtype, xi.shape[-1]
@@ -1302,6 +1306,7 @@ def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
     path0 = bm.pathfn(xi, xipT, gu, parT, gu_prev) if freeze else None
     done = torch.zeros(E, dtype=torch.int32, device=xi.device)
     count = torch.zeros_like(done)
+    n_trials = torch.zeros_like(done)
     for _ in range(bm.newton_iters):
         if bool(done.min() >= 1):
             break
@@ -1321,6 +1326,8 @@ def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
             alpha = torch.ones(E, dtype=dtype, device=xi.device)
             accepted = torch.zeros_like(done)
             for _ in range(4):
+                if trials is not None:
+                    n_trials += (1 - done) * (1 - accepted)
                 Rt = resid(xi + (alpha * ok) * dxi, path)
                 phit = 0.5 * usum(Rt * Rt, 0)
                 good = ((phit <= phi0 * (1.0 - 2.0 * 1e-4 * alpha))
@@ -1337,6 +1344,8 @@ def implicit_newton(bm, xipT, gu, parT, gu_prev=None, iters=None):
     failed = (rnorm >= max(bm.abs_tol * 10.0, 1e-30)).to(torch.int32)
     if iters is not None:
         iters.copy_(count)
+    if trials is not None:
+        trials.copy_(n_trials)
     return xi, path, failed
 
 

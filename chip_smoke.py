@@ -20,9 +20,14 @@ Phases, in order; any failure exits non-zero without the result lines:
     at 3D ndpn 3 on its Jacobians; the implicit
     assembly at cube n=32 small_hill, hyper_J2 and hypo_hill (mixed u/p),
     at notch2D h=0.004 small_hill_plane_stress, hyper_J2_plane_stress and
-    hypo_hill_plane_stress (displacement only) and hyper_J2_plane_strain
-    and hypo_hill_plane_strain (mixed u/p), the finite-deformation cases
-    with x != x_prev; the eigensolver libraries (implicit_eig.cu,
+    hypo_hill_plane_stress (displacement only) and small_hill_plane_strain,
+    hyper_J2_plane_strain and hypo_hill_plane_strain (mixed u/p), the
+    finite-deformation cases with x != x_prev (every implicit library
+    launches the team kernel, c8::implicit_team_kernel; the records of
+    implicit_assembly.cu and implicit_barlat.cu carry the instance's ptxas
+    registers and spill bytes and a bound that also counts the operations
+    this run's data needs, implicit_cost.FLOPS at PEAK_FLOPS, with the
+    time at the card's rate without FMA beside it); the eigensolver libraries (implicit_eig.cu,
     implicit_barlat.cu) at cube n=32 small_hosford, hypo_hosford and
     hypo_barlat (eig_deck); the hybrid's library (implicit_hybrid.cu) at
     notch2D h=0.004 hybrid_hyper_J2_plane_stress (hybrid_deck), with the
@@ -120,8 +125,10 @@ Phases, in order; any failure exits non-zero without the result lines:
     `primal` and `inverse` (the gradient check), in this process on the
     two last models' twin cases (cli_decks), exit code 0 and drop > 6.
  6. one JSON line listing every ported kernel (launches: the sum over
-    the runs of phases 4, 4b, 4c and 5b-5f; the probe's from its own run), the
-    card's name and power limit, and the `ok` line last.
+    the runs of phases 4, 4b, 4c and 5b-5f; the probe's from its own run;
+    implicit_assembly's entry also each instance's launches and figures,
+    kernels.model_launches), the card's name and power limit, and the
+    `ok` line last.
 
 The script imports nothing of JAX or of calibr8_tpu.  Kernel builds go to
 calibr8_tpu_torch/_build/.
@@ -437,6 +444,13 @@ def plane_stress_deck(h: float) -> dict:
                  gtype="mechanics_plane_stress")
     deck["linear algebra"] = {"method": "gmres", "tolerance": 1e-6, "maximum iterations": 1000}
     return deck
+
+
+def hill_plane_strain_deck(h: float) -> dict:
+    """The small_hill_plane_strain twin case (calibr8_tpu/models/
+    twin_cases.py:131-138, mixed u/p) on notch2D of size h, 2 load steps:
+    the kernel phase's shapes of implicit_assembly.cu's model 1."""
+    return _deck({"type": "notch2D", "h": h}, "small_hill_plane_strain", HILL2D, bcs_2d(0.01), 2)
 
 
 def hyper_plane_strain_deck(h: float) -> dict:
@@ -861,28 +875,34 @@ def time_ms(fn, reps: int, rounds: int = 3) -> float:
     return sorted(means)[len(means) // 2]
 
 
-def device_ms(fn, reps: int, kernel: str | None = None) -> float:
-    """Device time of one call: under torch.profiler, the device time of
-    `reps` back-to-back calls (of the kernels whose name holds `kernel`,
-    else of every kernel the call runs), over `reps`.  Where the profiler
-    shows no device time at all, CUDA events around the replay of a CUDA
-    graph that holds the `reps` calls; raises where it shows device time
-    but none of a kernel named like `kernel`.  Beside time_ms it splits a
-    call's wall into the card's share and the host's."""
+def device_ms(fn, reps: int, kernel: str | None = None, flush=None) -> float:
+    """Device time of one call: under torch.profiler, over `reps`
+    back-to-back calls (each after `flush()` where one is given), the
+    device time of the kernels whose name holds `kernel` over the launches
+    of them that the profile recorded (on the card a profile of 5 launches
+    of a 40 ms kernel has held only 1), else of every kernel the calls ran
+    over `reps`.  Where the profiler shows no device time at all and no
+    flush is given, CUDA events around the replay of a CUDA graph that
+    holds the `reps` calls; raises where it shows device time but none of
+    a kernel named like `kernel`.  Beside time_ms it splits a call's wall
+    into the card's share and the host's."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush()
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
-    us = sum(e.self_device_time_total for e in events if kernel is None or kernel in e.key)
+    named = [e for e in events if kernel is None or kernel in e.key]
+    us = sum(e.self_device_time_total for e in named)
     if us > 0:
-        return us / 1e3 / reps
-    if events:
+        return us / 1e3 / (reps if kernel is None else sum(e.count for e in named))
+    if events or flush is not None:
         raise RuntimeError(f"no kernel named like {kernel!r} in the profile of the call: "
                            f"{sorted({e.key for e in events})}")
     side = torch.cuda.Stream()
@@ -902,6 +922,35 @@ def device_ms(fn, reps: int, kernel: str | None = None) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+_NOFMA_RATES = {}
+
+
+def nofma_rate(dtype) -> float:
+    """The card's float64 or float32 operations per second without FMA
+    contraction (implicit_cost.nofma_rates: the highest SM clock that
+    nvidia-smi reads), read once."""
+    if not _NOFMA_RATES:
+        from calibr8_tpu_torch.implicit_cost import nofma_rates
+
+        _NOFMA_RATES.update(nofma_rates())
+    return _NOFMA_RATES[dtype]
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    """The sum of two launch-count dicts (launch_counts()), key by key;
+    a model's key is there only where a run launched it."""
+    return {k: a.get(k, 0) + b.get(k, 0) for k in a.keys() | b.keys()}
+
+
+def launch_counts() -> dict:
+    """kernels.launches, with the assembly libraries' launches by model
+    (kernels.model_launches) under "<counter>/<model>"."""
+    from calibr8_tpu_torch import kernels
+
+    return {**kernels.launches,
+            **{f"{c}/{m}": n for (c, m), n in kernels.model_launches.items()}}
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -1416,11 +1465,14 @@ def check_implicit(label, prob, scale, results, ctx=None):
     ctx, the element-level entry (kernel 1c, assembly_elems) on the
     elements of its parts instead, and against the single-device entry
     on the same elements, bit for bit."""
+    from calibr8_tpu_torch import kernels
     from calibr8_tpu_torch.fem.fused_assembly import (
         IMPLICIT_LIB, assembly_elems, assembly_elems_plain, fused_assembly_plain,
         implicit_assembly,
     )
+    from calibr8_tpu_torch.implicit_cost import FLOPS, ptxas_usage, team_flops
     from calibr8_tpu_torch.mechanics.global_residual import elem_kinematics
+    from calibr8_tpu_torch.models.batched import implicit_newton
 
     disc, bm = prob.disc, prob.assembler.bmodel
     kname = ("assembly_elems" if ctx is not None
@@ -1535,6 +1587,9 @@ def check_implicit(label, prob, scale, results, ctx=None):
                      single_device_ms=time_ms(single, 10))
         ok = ok and same
     ms = time_ms(kern, 10)
+    if bm.name in FLOPS and ctx is None:
+        # the team kernel's device time per call (its wall is `ms`)
+        extra["device_ms"] = device_ms(kern, 5, "implicit_team_kernel")
     pms = time_ms(plain, 1, rounds=1)
     # bytes: every input read once (x_prev too where the twin reads it, h
     # only for the mixed rows' stabilization; the element-level entry reads
@@ -1544,14 +1599,36 @@ def check_implicit(label, prob, scale, results, ctx=None):
     nbytes = ((n_x * nde * E * w if ctx is not None else n_x * disc.n_dofs * w + nde * E * 4)
               + E * nxi * w + npe * d * E * w + (1 + spec.mixed) * E * w + P.numel() * w
               + E * 4 + nde * E * w + nde * nde * E * w + nxi * E * w + 2 * E * 4)
-    # operations counted from c8_implicit.cuh, a lower bound: the small
-    # solves (one per Newton update this run's data needed, one for the
-    # condensation), the condensed rows K and the contraction with grad_N;
-    # the dual arithmetic of the residual evaluations is not counted
-    ng = d * d
-    flops = (sum(i * n for i, n in enumerate(hist)) * gauss_flops(nxi, 1)
-             + E * (gauss_flops(nxi, ng) + 2 * nde * ng * nxi + 2 * nde * npe * d * d))
-    b_ms, b_by = bound(nbytes, flops, dn)
+    lib = IMPLICIT_LIB.get(bm.name, ("implicit_assembly",))[0]
+    team = {}
+    if bm.name in FLOPS:
+        # implicit_assembly.cu and implicit_barlat.cu: the operations of
+        # c8::implicit_element (implicit_cost.FLOPS, counted on the host)
+        # that this run's data needs: A + B per local Newton update and, for
+        # the line search, T per trial up to the accepted one (the plain
+        # local Newton's count on the same inputs); at PEAK_FLOPS, and, as
+        # a figure beside the bound, at the card's rate without FMA
+        trials = 0
+        if eig:
+            n_trials = torch.zeros(E, dtype=torch.int32, device=DEVICE)
+            implicit_newton(bm, el["xi_prev_T"], gu, parT, gup, trials=n_trials)
+            trials = int(n_trials.sum())
+        flops = team_flops(bm.name, hist, trials)
+        b_ms, b_by = bound(nbytes, flops, dn)
+        team = dict(bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3, flops=flops,
+                    flops_ms=flops / PEAK_FLOPS[dn] * 1e3, line_search_trials=trials,
+                    flops_nofma_ms=flops / nofma_rate(disc.dtype) * 1e3,
+                    ptxas=ptxas_usage(kernels.build_log(lib)).get(f"{dn} {bm.name}"))
+    else:
+        # operations counted from c8_implicit.cuh, a lower bound: the small
+        # solves (one per Newton update this run's data needed, one for the
+        # condensation), the condensed rows K and the contraction with
+        # grad_N; the dual arithmetic of the residual evaluations is not
+        # counted
+        ng = d * d
+        flops = (sum(i * n for i, n in enumerate(hist)) * gauss_flops(nxi, 1)
+                 + E * (gauss_flops(nxi, ng) + 2 * nde * ng * nxi + 2 * nde * npe * d * d))
+        b_ms, b_by = bound(nbytes, flops, dn)
     worst = []
     if eig:
         worst = worst_elements(bm, out_k, out_p, el, spec, iters, iters_p)
@@ -1564,7 +1641,8 @@ def check_implicit(label, prob, scale, results, ctx=None):
                iters_apart=int(apart.sum()),
                rel_err_iters_apart={k: v[0] for k, v in apart_err.items()},
                newton_iters_hist=hist, ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, limits=dict(lim, apart=apart_lim if split else None), ok=ok)
+               bound_by=b_by, **team, limits=dict(lim, apart=apart_lim if split else None),
+               ok=ok)
     log(json.dumps(rec))
     if not ok:
         log(f"FAIL {kname} {label} {dn}")
@@ -1635,6 +1713,8 @@ def IMPLICIT_CASES(meshes):
         ("cube n=32 small_hill", hill_deck(32), meshes["cube32"], 0.02),
         ("notch2D h=0.004 small_hill_plane_stress", plane_stress_deck(0.004), meshes["notch004"],
          0.01),
+        ("notch2D h=0.004 small_hill_plane_strain", hill_plane_strain_deck(0.004),
+         meshes["notch004"], 0.02),
         ("cube n=32 hyper_J2", hyper_deck(32), meshes["cube32"], 0.02),
         ("notch2D h=0.004 hyper_J2_plane_strain", hyper_plane_strain_deck(0.004),
          meshes["notch004"], 0.02),
@@ -1743,7 +1823,7 @@ def phase_full_width(label, deck, mesh, operator, J_ref, needed):
     traj = prob.solve_primal()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    counts = dict(kernels.launches)
+    counts = launch_counts()
     J = traj.J
     rel = abs(J - J_ref) / abs(J_ref)
     steps = [dict(step=i + 1, newton_iterations=info["iterations"] - 1,
@@ -1941,7 +2021,7 @@ def phase_adjoint_full_width(name, mesh, g_ref, at_tol=False):
     g = obj.gradient(x0)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    counts = dict(kernels.launches)
+    counts = launch_counts()
     names = obj.active.names
     ref = np.asarray([g_ref[k] for k in names])
     rel = float(np.abs(g - ref).max() / np.abs(ref).max())
@@ -2316,7 +2396,7 @@ def phase_dist_primal(label, deck, mesh, n_parts, J_ref, needed, single=None,
     traj = DistPrimal(ctx).run()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    counts = dict(kernels.launches)
+    counts = launch_counts()
     J = float(np.sum(traj["qoi_values"]))
     rel = abs(J - J_ref) / abs(J_ref) if J_ref is not None else None
     steps = [dict(step=i + 1, newton_iterations=info["iterations"] - 1,
@@ -2415,7 +2495,7 @@ def phase_dist_adjoint():
     grad, _ = adj.sweep(traj, prob.params0, prob.time_grid)
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    sweep_counts = dict(kernels.launches)
+    sweep_counts = launch_counts()
     g = grad.double().cpu().numpy()
     ref = np.asarray(G_REF_DIST)
     scale = float(np.abs(ref).max())
@@ -2583,7 +2663,7 @@ def phase_mg_primal(label, deck, mesh, J_ref, needed):
     traj = prob.solve_primal()
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    counts = dict(kernels.launches)
+    counts = launch_counts()
     lin = prob.step_solver.cfg.linear
     rel = abs(traj.J - J_ref) / abs(J_ref)
     steps = mg_solve_records(traj)
@@ -2657,7 +2737,7 @@ def phase_mg_adjoint(mesh, g_ref):
         ok &= (rel <= 1e-5 and bool(np.all(np.isfinite(g)))
                and all(s["relres"] <= adj.linear_cfg.tol for s in steps))
     diff = float(np.abs(grads["step"] - grads["none"]).max() / np.abs(grads["none"]).max())
-    counts = dict(kernels.launches)
+    counts = launch_counts()
     summ = timers.summary()
     rec.update(step_vs_none=diff, step_vs_none_limit=1e-9, tol=adj.linear_cfg.tol,
                phases={k: dict(count=v["count"], total_s=v["total"]) for k, v in summ.items()},
@@ -2736,14 +2816,14 @@ def main(argv) -> int:
             f"({time.perf_counter() - t_start:.0f} s)")
         if not ok:
             return 1
-        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        counts = add_counts(counts, c)
     for label, deck, mesh, J_ref, needed in mg_runs(meshes):
         ok, c = phase_mg_primal(label, deck, mesh, J_ref, needed)
         log(f"phase multigrid primal, {label}: {'ok' if ok else 'FAILED'} "
             f"({time.perf_counter() - t_start:.0f} s)")
         if not ok:
             return 1
-        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        counts = add_counts(counts, c)
 
     needed = ["assembly_elems", "ell_spmv_part"]
     for label, deck, J_ref in (
@@ -2755,13 +2835,13 @@ def main(argv) -> int:
             f"({time.perf_counter() - t_start:.0f} s)")
         if not ok:
             return 1
-        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        counts = add_counts(counts, c)
     ok, c = phase_dist_parity(meshes)
     log(f"phase dist, 5 parts against the single-device solve: {'ok' if ok else 'FAILED'} "
         f"({time.perf_counter() - t_start:.0f} s)")
     if not ok:
         return 1
-    counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    counts = add_counts(counts, c)
 
     for label, deck in fd_decks().items():
         ok = phase_adjoint_fd(label, deck)
@@ -2778,19 +2858,19 @@ def main(argv) -> int:
             f"({time.perf_counter() - t_start:.0f} s)")
         if not ok:
             return 1
-        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        counts = add_counts(counts, c)
     ok, c = phase_mg_adjoint(meshes["mg_cube"], G_REF_MG)
     log(f"phase multigrid adjoint: {'ok' if ok else 'FAILED'} "
         f"({time.perf_counter() - t_start:.0f} s)")
     if not ok:
         return 1
-    counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    counts = add_counts(counts, c)
     ok, c = phase_dist_adjoint()
     log(f"phase dist adjoint: {'ok' if ok else 'FAILED'} "
         f"({time.perf_counter() - t_start:.0f} s)")
     if not ok:
         return 1
-    counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+    counts = add_counts(counts, c)
     dist_overhead(meshes["cube32"])
     log(f"dist overhead record ({time.perf_counter() - t_start:.0f} s)")
     ok = phase_cli()
@@ -2824,10 +2904,18 @@ def main(argv) -> int:
             r = r["forward"]
         entry = dict(name=name, route="cuda", source=src, replaces=repl,
                      launches=counts[name], **figures(r))
-        if name == "implicit_assembly":
-            # the hypo_hill family's figures at cube n=32 beside hyper_J2's
-            h = results[("implicit_assembly", "cube n=32 hypo_hill", "float64")]
-            entry["hypo_hill"] = figures(h)
+        if name in ("implicit_assembly", "implicit_barlat"):
+            # each instance's launches, figures, bounds by bytes and by
+            # operations, and ptxas report (3D at cube n=32, the plane twins
+            # at notch2D h=0.004) beside hyper_J2's (implicit_assembly)
+            for key, h in results.items():
+                if key[0] == name and key[2] == "float64":
+                    model = key[1].split()[-1]
+                    f32 = results[(name, key[1], "float32")]
+                    entry[model] = dict(
+                        launches=counts.get(f"{name}/{model}", 0), **figures(h),
+                        **{k: h[k] for k in ("bytes_ms", "flops_ms", "flops_nofma_ms", "ptxas")},
+                        float32={k: f32[k] for k in ("ms", "bound_ms", "bound_by", "ptxas")})
         if name == "implicit_eig":
             h = results[("implicit_eig", "cube n=32 hypo_hosford", "float64")]
             entry["hypo_hosford"] = figures(h)
