@@ -30,6 +30,15 @@
 
 namespace c8 {
 
+// the zero of a tangent slot that no seed reaches: T(0), which a host
+// harness's operation-counting scalar marks so that the operations on it,
+// which the function does not need, go uncounted
+template <typename T>
+C8_HD T tangent_zero() { return T(0); }
+// the same zero where a slot is zeroed in place of x's: marked as x is
+template <typename T>
+C8_HD T zero_like(const T&) { return T(0); }
+
 template <typename T, int N>
 struct Dual {
   T v;
@@ -37,9 +46,22 @@ struct Dual {
   C8_HD Dual() {}
   C8_HD Dual(T x) : v(x) {
 #pragma unroll
-    for (int k = 0; k < N; ++k) d[k] = T(0);
+    for (int k = 0; k < N; ++k) d[k] = tangent_zero<T>();
   }
 };
+
+// the constant c in place of f: Dual<T, N>(c) (c for a plain f), its zero
+// tangent slots zero_like f's
+template <typename T>
+C8_HD T constant_like(T, T c) { return c; }
+template <typename T, int N>
+C8_HD Dual<T, N> constant_like(const Dual<T, N>& f, T c) {
+  Dual<T, N> r;
+  r.v = c;
+#pragma unroll
+  for (int k = 0; k < N; ++k) r.d[k] = zero_like(f.d[k]);
+  return r;
+}
 
 // the plain scalars that mix with duals as constants: the arithmetic
 // types, and a type that specializes scalar_like (a host harness's
@@ -320,7 +342,7 @@ C8_HD T maxc(T f, T c) { return f < c ? c : f; }
 
 template <typename T, int N>
 C8_HD Dual<T, N> maxc(const Dual<T, N>& f, T c) {
-  if (f.v < c) return Dual<T, N>(c);
+  if (f.v < c) return constant_like(f, c);
   Dual<T, N> r = f;
   if (f.v == c) {
 #pragma unroll
@@ -335,7 +357,7 @@ C8_HD T minc(T f, T c) { return f > c ? c : f; }
 
 template <typename T, int N>
 C8_HD Dual<T, N> minc(const Dual<T, N>& f, T c) {
-  if (f.v > c) return Dual<T, N>(c);
+  if (f.v > c) return constant_like(f, c);
   Dual<T, N> r = f;
   if (f.v == c) {
 #pragma unroll
@@ -348,13 +370,33 @@ C8_HD Dual<T, N> minc(const Dual<T, N>& f, T c) {
 template <typename S, typename T>
 C8_HD S c8_clip(const S& f, T lo, T hi) { return minc(maxc(f, lo), hi); }
 
+// The lanes that split a function's own seeds (c8_eig.cuh yield_inner):
+// G lanes, lane `lane` carrying the seeds c with c mod G = lane.  SoloLane
+// is one thread with all of them; TeamLane a lane of kernel 1b's team
+// (c8_implicit.cuh implicit_team_element), whose lanes meet in the team's
+// scratch `sh` at tm.sync().
+struct SoloLane {
+  static constexpr int G = 1;
+  int lane = 0;
+  C8_HD void sync() const {}
+};
+
+template <int G_, typename Team, typename T>
+struct TeamLane {
+  static constexpr int G = G_;
+  const Team& tm;
+  T* sh;
+  int lane;
+  C8_HD void sync() const { tm.sync(); }
+};
+
 // max(f, 0) with JAX's tie rule: at f == 0 each side gets half the tangent
 template <typename S>
 C8_HD S max0(const S& f) {
   typedef decltype(val(f)) T;
   const T v = val(f);
   if (v > T(0)) return f;
-  if (v < T(0)) return S(T(0));
+  if (v < T(0)) return constant_like(f, T(0));
   return f * T(0.5);
 }
 

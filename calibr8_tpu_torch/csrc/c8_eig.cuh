@@ -184,6 +184,105 @@ C8_HD S hosford_phi_n(const S sigma[3][3], const S dev[3][3], T a, S n[6]) {
   return phi;
 }
 
+// ---- a yield surface's tangents through the stress's six components ----
+//
+// phi and n are functions of the symmetric stress A alone: 6 inputs, 7
+// outputs.  The residual's scalar carries more seeds than that (the local
+// Newton's 7, the condensation's 16), most of them zero or redundant in
+// A.  So yield_inner runs the surface Y (Y::eval(A, par, n)) once on
+// Dual<T, 6>, seeded at A's value, one seed per voigt component c of
+// [00, 11, 22, 01, 02, 12] (an off-diagonal seed sets A[i][j] and A[j][i]),
+// and contracts its 7 x 6 Jacobian with the outer tangents of the same six
+// components: out.d[j] = sum_c Jin[r][c] A_c.d[j], c in index order.  The
+// values are the surface's own; the tangents differ from a pass of the
+// outer duals through Y only by the contraction's rounding (every tie and
+// select of Y is the same linear map of the seeds either way).  Exact only
+// where A is symmetric bit for bit, in value and every tangent, as
+// small_dev_stress and voigt_to_sym build it.
+//
+// G lanes (L: SoloLane, or a TeamLane of kernel 1b's team) split the six
+// seeds, lane l those with c mod G = l (Dual<T, ceil(6 / G)>); at G > 1
+// each lane puts its columns of the Jacobian in the team's scratch (42
+// words), and after sync() every lane reads all of it and contracts its own
+// outer slots.  Each column has the same bits at every G (the Dual rules
+// compute each tangent apart), so every G gives the same outputs.  A plain
+// T (the line search's trials, the branch at the first guess) calls Y.
+
+// the voigt component of A[i][j]
+C8_HD constexpr int voigt_of(int i, int j) {
+  return i == j ? i : (i + j == 1 ? 3 : (i + j == 2 ? 4 : 5));
+}
+
+template <typename Y, typename T, typename L>
+C8_HD T yield_inner(const T A[3][3], const T* par, const L&, T n[6]) {
+  return Y::eval(A, par, n);
+}
+
+template <typename Y, typename T, int N, typename L>
+C8_HD Dual<T, N> yield_inner(const Dual<T, N> A[3][3], const T* par, const L& ln,
+                             Dual<T, N> n[6]) {
+  constexpr int G = L::G, NI = (6 + G - 1) / G;
+  typedef Dual<T, NI> SI;
+  SI Ai[3][3], ni[6];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      Ai[i][j] = SI(A[i][j].v);
+#pragma unroll
+      for (int s = 0; s < NI; ++s) Ai[i][j].d[s] =
+            s * G + ln.lane == voigt_of(i, j) ? T(1) : tangent_zero<T>();
+    }
+  const SI phii = Y::eval(Ai, par, ni);
+  // Jin[r][c]: d(phi, n[0..5])[r] / dA_c
+  T Jin[7][6];
+  if constexpr (G == 1) {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      Jin[0][c] = phii.d[c];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) Jin[1 + k][c] = ni[k].d[c];
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < NI; ++s) {
+      const int c = s * G + ln.lane;
+      if (c < 6) {
+        ln.sh[c] = phii.d[s];
+#pragma unroll
+        for (int k = 0; k < 6; ++k) ln.sh[(1 + k) * 6 + c] = ni[k].d[s];
+      }
+    }
+    ln.sync();
+#pragma unroll
+    for (int r = 0; r < 7; ++r)
+#pragma unroll
+      for (int c = 0; c < 6; ++c) Jin[r][c] = ln.sh[r * 6 + c];
+    ln.sync();
+  }
+  Dual<T, N> phi;
+  phi.v = phii.v;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) n[k].v = ni[k].v;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const T a[6] = {A[0][0].d[j], A[1][1].d[j], A[2][2].d[j],
+                    A[0][1].d[j], A[0][2].d[j], A[1][2].d[j]};
+    T o[7];
+#pragma unroll
+    for (int r = 0; r < 7; ++r) {
+      T acc = Jin[r][0] * a[0];
+#pragma unroll
+      for (int c = 1; c < 6; ++c) acc = acc + Jin[r][c] * a[c];
+      o[r] = acc;
+    }
+    phi.d[j] = o[0];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) n[k].d[j] = o[1 + k];
+  }
+  return phi;
+}
+
 // the Yld2004-18p linear transform (t_barlat_L_apply) of a stress in
 // Barlat's flat order [00, 11, 22, 01, 12, 20]; c = [c01, c02, c10, c12,
 // c20, c21, c33, c44, c55]

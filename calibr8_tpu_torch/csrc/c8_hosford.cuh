@@ -13,7 +13,10 @@
 // returns the path it used; FREEZE_PATH also turns on the local line
 // search (calibr8_tpu's local_line_search defaults to freeze_path).
 // 30 local Newton iterations.  The hypo twins use the precompute hook:
-// their residual_pre reads the unrotated rate d.
+// their residual_pre reads the unrotated rate d.  The residuals take the
+// lanes that split the yield surface's own seeds (SoloLane, or kernel 1b's
+// TeamLane): the Hosford surface runs on the stress's six components
+// (c8_eig.cuh yield_inner); Barlat's ignores them.
 #pragma once
 
 #include "c8_eig.cuh"
@@ -32,12 +35,23 @@ C8_HD S combined_flow(T Y, T K, T Sat, T Dexp, const S& alpha) {
   return (Y + K * alpha) + Sat * (T(1) - c8_exp((-Dexp) * alpha));
 }
 
+// Hosford on a deviatoric stress s (small_hosford's): sigma and dev are s
+template <typename T>
+struct HosfordOnDev {
+  template <typename S>
+  C8_HD static S eval(const S s[3][3], const T* par, S n[6]) {
+    return hosford_phi_n(s, s, par[3], n);
+  }
+};
+
 // small_hosford (models/batched.py:1768-1851): xi = [pstrain voigt (6),
 // alpha]; params [E, nu, Y, a, K, S, D]; Hosford on the deviatoric stress
 template <typename T>
 struct SmallHosford : SmallStrainTwin<T, 3, 7> {
   static constexpr int NPAR = 7, NEWTON_ITERS = 30;
   static constexpr bool MIXED = true, FREEZE_PATH = true;
+  // kernel 1b's lanes per element (c8_implicit.cuh implicit_team_lanes)
+  static constexpr int TEAM_LANES = sizeof(T) == 8 ? 2 : 1;
 
   template <typename S>
   C8_HD static void stress(const S* xi, const S gu[3][3], const T* par, S out[3][3]) {
@@ -51,13 +65,13 @@ struct SmallHosford : SmallStrainTwin<T, 3, 7> {
 
   C8_HD static T psf(const T* par) { return small_psf(par); }
 
-  template <typename S>
+  template <typename S, typename L = SoloLane>
   C8_HD static int residual(const S* xi, const T* xip, const S gu[3][3], const T gup[3][3],
-                            const T* par, T abs_tol, int path_in, S* C) {
+                            const T* par, T abs_tol, int path_in, S* C, const L& ln = L()) {
     const T mu = shear_modulus(par);
     S s[3][3], n[6];
     stress(xi, gu, par, s);
-    const S phi = hosford_phi_n(s, s, par[3], n);
+    const S phi = yield_inner<HosfordOnDev<T>>(s, par, ln, n);
     const S f = (phi - combined_flow(par[2], par[4], par[5], par[6], xi[6])) / (T(2) * mu);
     const int path = frozen_path(path_in, f, abs_tol);
     const T w = T(path);
@@ -91,15 +105,15 @@ struct HypoEigTwin : HypoTwin<T, 3, 7, NPAR_, true> {
     HypoHill<T>::first_guess(xip, gu, gup, par, xi);
   }
 
-  template <typename S, typename P>
+  template <typename S, typename P, typename L = SoloLane>
   C8_HD static int residual_pre(const S* xi, const T* xip, const Pre<P>& pre, const T* par,
-                                T abs_tol, int path_in, S* C) {
+                                T abs_tol, int path_in, S* C, const L& ln = L()) {
     const T mu = shear_modulus(par);
     P upd[6];
     HypoHill<T>::elastic_update(xip, pre.d, par, upd);
     S TC[3][3], n[6];
     voigt_to_sym<3>(xi, TC);
-    const S phi = Yield::phi_n(TC, par, n);
+    const S phi = Yield::phi_n(TC, par, n, ln);
     const S f = (phi - Yield::flow(par, xi[6])) / (T(2) * mu);
     const int path = frozen_path(path_in, f, abs_tol);
     const T w = T(path);
@@ -124,14 +138,19 @@ struct HypoEigTwin : HypoTwin<T, 3, 7, NPAR_, true> {
   C8_HD static T psf(const T* par) { return small_psf(par); }
 };
 
-// Hosford on TC (deviator from TC), flow Y + S (1 - exp(-D alpha))
+// Hosford on TC (deviator from TC), through TC's six components
+// (yield_inner), flow Y + S (1 - exp(-D alpha))
 template <typename T>
 struct HosfordOnTC {
   template <typename S>
-  C8_HD static S phi_n(const S TC[3][3], const T* par, S n[6]) {
+  C8_HD static S eval(const S TC[3][3], const T* par, S n[6]) {
     S dv[3][3];
     dev3(TC, dv);
     return hosford_phi_n(TC, dv, par[3], n);
+  }
+  template <typename S, typename L>
+  C8_HD static S phi_n(const S TC[3][3], const T* par, S n[6], const L& ln) {
+    return yield_inner<HosfordOnTC<T>>(TC, par, ln, n);
   }
   template <typename S>
   C8_HD static S flow(const T* par, const S& alpha) {
@@ -143,8 +162,8 @@ struct HosfordOnTC {
 // Y + K alpha + S (1 - exp(-D alpha))
 template <typename T>
 struct BarlatOnTC {
-  template <typename S>
-  C8_HD static S phi_n(const S TC[3][3], const T* par, S n[6]) {
+  template <typename S, typename L>
+  C8_HD static S phi_n(const S TC[3][3], const T* par, S n[6], const L&) {
     return barlat_phi_n(TC, par + 7, par + 16, par[3], n);
   }
   template <typename S>
@@ -155,7 +174,10 @@ struct BarlatOnTC {
 
 // hypo_hosford (models/batched.py:1854-1901): params [E, nu, Y, a, K, S, D]
 template <typename T>
-struct HypoHosford : HypoEigTwin<T, 7, HosfordOnTC<T>> {};
+struct HypoHosford : HypoEigTwin<T, 7, HosfordOnTC<T>> {
+  // kernel 1b's lanes per element (c8_implicit.cuh implicit_team_lanes)
+  static constexpr int TEAM_LANES = sizeof(T) == 8 ? 2 : 1;
+};
 
 // hypo_barlat (models/batched.py:1904-1953): params [E, nu, Y, a, K, S, D,
 // sp_* (9), dp_* (9)]

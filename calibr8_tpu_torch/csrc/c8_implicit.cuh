@@ -25,11 +25,12 @@
 // is the primal values, which every lane computes again.  Measured on the
 // card (implicit_sweep.py, PERF.md), more lanes win only where one
 // thread's spills or its serial trials cost more than that: hypo_hill
-// float64 at G = 4, hypo_barlat at G = 2, hypo_hill_plane_strain float32
-// at G = 2; every other instance takes G = 1.  With G > 1 the block stages
-// its elements' rows in shared memory and stores them so that a warp
-// writes one J entry of consecutive elements, the trailing layout; one
-// lane's own stores are that layout already.
+// float64 at G = 4, hypo_barlat and the Hosford twins' float64 at G = 2,
+// hypo_hill_plane_strain float32 at G = 2; every other instance takes
+// G = 1.  With G > 1 the block stages its elements' rows in shared memory
+// and stores them so that a warp writes one J entry of consecutive
+// elements, the trailing layout; one lane's own stores are that layout
+// already.
 // A model's parameters are copied into registers (NPAR of them), or, for
 // a model with RUNTIME_PAR (the hybrid, whose network the deck sizes),
 // read in place from its element set's row in global memory.
@@ -128,19 +129,21 @@ struct has_freeze_path<M, std::void_t<decltype(M::FREEZE_PATH)>>
 // C at xi; returns its path.  FREEZE_PATH models take the branch path_in
 // (-1: the one xi selects), the others always the one xi selects.  gu
 // (any scalar) is read by models without the precompute hook, pre by
-// models with it.
-template <typename M, typename T, typename S, typename G, typename P>
+// models with it.  ln, the lanes that split the yield surface's own seeds
+// (c8_dual.cuh SoloLane / TeamLane), goes to the FREEZE_PATH models (the
+// eigensolver twins of c8_hosford.cuh).
+template <typename M, typename T, typename S, typename G, typename P, typename L = SoloLane>
 C8_HD int local_residual(const S* xi, const T* xip, const G gu[M::D][M::D],
                          const T gup[M::D][M::D], const P& pre, const T* par, T abs_tol,
-                         int path_in, S* C) {
+                         int path_in, S* C, const L& ln = L()) {
   if constexpr (has_precompute<M>::value) {
     if constexpr (has_freeze_path<M>::value)
-      return M::residual_pre(xi, xip, pre, par, abs_tol, path_in, C);
+      return M::residual_pre(xi, xip, pre, par, abs_tol, path_in, C, ln);
     else
       return M::residual_pre(xi, xip, pre, par, abs_tol, C);
   } else {
     if constexpr (has_freeze_path<M>::value)
-      return M::residual(xi, xip, gu, gup, par, abs_tol, path_in, C);
+      return M::residual(xi, xip, gu, gup, par, abs_tol, path_in, C, ln);
     else
       return M::residual(xi, xip, gu, gup, par, abs_tol, C);
   }
@@ -649,6 +652,11 @@ C8_HD void implicit_team_element(
   // the lane's slots: seed j G + l in slot j
   constexpr int NLX = (NXI + G - 1) / G, NL = (NV + G - 1) / G;
   const int l = tm.lane;
+  // the residual's own seeds split the same way (the eigensolver twins'
+  // yield surface, c8_eig.cuh yield_inner: 7 x 6 words of sh, free while a
+  // residual runs)
+  static_assert(!FREEZE || implicit_team_scratch<M>() >= 7 * 6, "yield_inner's scratch");
+  const TeamLane<G, Team, T> lanes{tm, sh, l};
 
   ElemData<T, M> el;
   gather_element<T, M>(e, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params, es_ids, el);
@@ -680,7 +688,7 @@ C8_HD void implicit_team_element(
 #pragma unroll
       for (int j = 0; j < NLX; ++j) xs[k].d[j] = j * G + l == k ? T(1) : T(0);
     }
-    local_residual<M>(xs, xip, gux, el.gup, pre_n, par, abs_tol, path0, C);
+    local_residual<M>(xs, xip, gux, el.gup, pre_n, par, abs_tol, path0, C, lanes);
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;
@@ -760,7 +768,7 @@ C8_HD void implicit_team_element(
     SV C[NXI];
     typename pre_of<M, SV>::type pre_v;
     if constexpr (PRE) M::precompute(gv, el.gup, par, pre_v);
-    path = local_residual<M>(xv, xip, gv, el.gup, pre_v, par, abs_tol, path0, C);
+    path = local_residual<M>(xv, xip, gv, el.gup, pre_v, par, abs_tol, path0, C, lanes);
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;

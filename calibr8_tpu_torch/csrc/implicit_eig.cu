@@ -16,18 +16,34 @@
 // (the eigensolver instances are the build's long pole).  Built without
 // FMA contraction (kernels.EXTRA_FLAGS), as implicit_assembly.cu is.
 //
-// What bounds it on an H100: the stores, 2 KB of J_T per element in
-// float64 against ~0.5 KB of inputs, ~0.5 GB at cube n=32 (0.15 ms at
-// 3.35 TB/s).  The arithmetic is far larger than the Hill twins': every
-// residual evaluation runs one eigendecomposition (two for Barlat: one
-// per linear transform), each three 3x3 products, acos, cos and the
-// eigenvector selects, under up to 30 local Newton iterations of 7
-// tangents plus 4 line-search trials on plain T, and the condensation
-// carries 16 tangents through them (and, for the hypo twins, through
-// three polar factors of 6 iterations).  The library launches
-// c8_implicit.cuh's team kernel at G = 1 (the two models give no
-// TEAM_LANES): one thread per element, whose duals spill to local memory
-// (ptxas reports it).  A team of lanes for these twins is later work.
+// What bounds it on an H100: the arithmetic.  Its stores are those of the
+// other 3D twins (2 KB of J_T per element in float64, 0.15 ms at cube n=32
+// at 3.35 TB/s); its operations, counted on the host (implicit_cost.FLOPS,
+// none on a tangent slot that no seed reaches), are ~1.4e4 (small_hosford)
+// and ~6.0e4 (hypo_hosford) per element plus ~5.2e3 per local Newton
+// update and ~6e2 per line-search trial.  Every
+// residual runs one eigendecomposition (three 3x3 products, acos, cos, the
+// eigenvector selects, some 25 divides) and six |x|^e, under up to 30
+// local Newton iterations and 4 line-search trials on plain T, and f64
+// divides and functions are long instruction sequences on the card.
+//
+// The design: the yield surface is a function of the symmetric stress
+// alone, so it runs on the stress's six voigt components (c8_eig.cuh
+// yield_inner: Dual<T, 6>, its 7 x 6 Jacobian contracted with the outer
+// tangents) instead of the residual's 7 (Newton) or 16 (condensation)
+// tangents: the eigensolver's scalar is 7 words, not 17, which cuts
+// small_hosford's spills about threefold (ptxas -v).  For hypo_hosford
+// the stress is xi's own six seeds, so each outer tangent is one inner
+// column times 1 plus zeros: exact (implicit_sweep.py found the outputs of
+// the kernel before this design bit for bit at cube n=32); its cost is the
+// polar factors of the unrotated rate under 16 tangents, 7 of them zero
+// (the precompute hook), as hypo_hill's.  Both twins launch c8_implicit.cuh's team kernel
+// at G = 2 in float64 (each lane carrying half the tangents and half the
+// inner seeds, which meet in the team's scratch, and two of the four
+// line-search trials) and G = 1 in float32 (TEAM_LANES, from
+// implicit_sweep.py on the card; PERF.md): more lanes repeat the
+// eigensolver's primal values, which cost more than the split tangents
+// save.
 //
 // C interface, bound with ctypes (calibr8_tpu_torch/fem/fused_assembly.py),
 // the same as c8_implicit_assembly's; model: 9 small_hosford, 10

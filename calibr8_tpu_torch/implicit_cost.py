@@ -3,13 +3,18 @@ csrc/c8_implicit.cuh) costs: its operations per element, and the
 registers and spill bytes that ptxas reports for its instances.
 chip_smoke.py and implicit_sweep.py read both.
 
-FLOPS holds, for each instance of implicit_assembly.cu and
-implicit_barlat.cu, (A, B, T): an element whose local Newton takes `iters`
-updates and whose line search (FREEZE_PATH models only) needs `trials`
-trials in all, up to the accepted one of each update, does A + B iters +
-T trials operations, one per add, subtract, multiply, divide, square root
-and function call.  tests/test_torch_implicit_team_host.py counts them
-with c8::implicit_element on a counting scalar and checks this table.
+FLOPS holds, for each instance of implicit_assembly.cu, implicit_eig.cu
+and implicit_barlat.cu, (A, B, T): an element whose local Newton takes
+`iters` updates and whose line search (FREEZE_PATH models only) needs
+`trials` trials in all, up to the accepted one of each update, does A + B
+iters + T trials operations, one per add, subtract, multiply, divide,
+square root and function call that the function needs: none on a
+tangent slot that no seed reaches (a zero by construction, such as the
+local state's slots of the polar factors of grad_u, c8_dual.cuh
+tangent_zero) or on what such zeros alone make.
+tests/test_torch_implicit_team_host.py (the Hosford twins:
+tests/test_torch_implicit_eig_host.py) counts them with
+c8::implicit_element on a counting scalar and checks this table.
 """
 
 from __future__ import annotations
@@ -19,18 +24,21 @@ import subprocess
 
 import torch
 
-# (A, B, T) operations per element (tests/test_torch_implicit_team_host.py)
+# (A, B, T) operations per element (tests/test_torch_implicit_team_host.py,
+# tests/test_torch_implicit_eig_host.py)
 FLOPS = {
-    "small_hill": (11096, 1790, 0),
-    "small_hill_plane_strain": (3168, 750, 0),
-    "small_hill_plane_stress": (2819, 740, 0),
-    "hyper_J2": (27928, 4746, 0),
-    "hyper_J2_plane_strain": (6482, 1544, 0),
-    "hyper_J2_plane_stress": (9772, 3183, 0),
-    "hypo_hill": (95570, 1372, 0),
-    "hypo_hill_plane_strain": (17846, 818, 0),
-    "hypo_hill_plane_stress": (13486, 973, 0),
-    "hypo_barlat": (142646, 15811, 1277),
+    "small_hill": (4890, 878, 0),
+    "small_hill_plane_strain": (1588, 388, 0),
+    "small_hill_plane_stress": (1477, 396, 0),
+    "hyper_J2": (10978, 1403, 0),
+    "hyper_J2_plane_strain": (2537, 517, 0),
+    "hyper_J2_plane_stress": (3715, 997, 0),
+    "hypo_hill": (50902, 797, 0),
+    "hypo_hill_plane_strain": (8763, 481, 0),
+    "hypo_hill_plane_stress": (6590, 495, 0),
+    "hypo_barlat": (72663, 11061, 1277),
+    "small_hosford": (14011, 5239, 615),
+    "hypo_hosford": (60392, 5259, 610),
 }
 # each instance's model struct (c8_hill.cuh, c8_hyper.cuh, c8_hypo.cuh,
 # c8_hosford.cuh), as ptxas names the kernels' instances
@@ -39,7 +47,8 @@ MODEL_STRUCT = {"small_hill": "SmallHill", "small_hill_plane_strain": "SmallHill
                 "hyper_J2_plane_strain": "HyperJ2PlaneStrain",
                 "hyper_J2_plane_stress": "HyperJ2PlaneStress", "hypo_hill": "HypoHill",
                 "hypo_hill_plane_strain": "HypoHillPlaneStrain",
-                "hypo_hill_plane_stress": "HypoHillPlaneStress", "hypo_barlat": "HypoBarlat"}
+                "hypo_hill_plane_stress": "HypoHillPlaneStress", "hypo_barlat": "HypoBarlat",
+                "small_hosford": "SmallHosford", "hypo_hosford": "HypoHosford"}
 # lanes per SM for one float64 or float32 add or multiply a clock (H100)
 LANES_PER_SM = {torch.float64: 64, torch.float32: 128}
 

@@ -7,24 +7,29 @@ c8::implicit_team_lanes.
 
 Run it from the repository's root: it takes chip_smoke.py's implicit
 cases (its decks, states and float32 local tolerances).  Builds each of
-the two sources that launch the team kernel, implicit_assembly.cu and
-implicit_barlat.cu, as the program builds it (G from the rule, tag
-"rule"), once more per G with the lanes fixed (-DC8_IMPLICIT_TEAM=G, tag
-"G<n>"; G = 1, one thread per element running c8::implicit_element, is
-always built and is the reference), and, with --alt, the two sources of
-another csrc/ directory (an earlier tree's kernel, `git archive` of its
-commit; tag "alt"); one nvcc each, all started together, into
-_build/implicit_sweep/ (each build's ptxas report beside it).  Then, at
-each case of chip_smoke.py's phase 2 whose twin one of the two libraries
-holds (cube n=32 small_hill, hyper_J2, hypo_hill, hypo_barlat; notch2D
-h=0.004 the six plane twins), in float64 and float32, it calls every
-build on the same inputs, holds each one's outputs (R, J, xi, path, fail,
-local counts) against the G = 1 build's bit for bit, and reads the
-kernel's device time per launch (chip_smoke.device_ms) back to back
-("warm") and with 256 MB read before every call ("cold").  Prints one JSON
-line per case and dtype (with each build's registers and spill bytes),
-then the card's name and power limit, then {"ok": ...}: whether every
-build equals the G = 1 one.  Needs a CUDA device.
+the three sources whose instances implicit_cost.FLOPS counts,
+implicit_assembly.cu, implicit_eig.cu and implicit_barlat.cu, as the
+program builds it (G from the rule, tag "rule"), once more per G with the
+lanes fixed (-DC8_IMPLICIT_TEAM=G, tag "G<n>"; G = 1, one thread per
+element running c8::implicit_element, is always built and is the
+reference), and, with --alt, the three sources of another csrc/ directory
+(an earlier tree's kernel, `git archive` of its commit; tag "alt"); one
+nvcc each, all started together, into _build/implicit_sweep/ (each
+build's ptxas report beside it).  Then, at each case of chip_smoke.py's
+phase 2 whose twin one of the three libraries holds (cube n=32
+small_hill, hyper_J2, hypo_hill, small_hosford, hypo_hosford (their pull
+tilted, chip_smoke.eig_deck), hypo_barlat; notch2D h=0.004 the six plane
+twins), in float64 and float32, it calls every build on the same inputs,
+holds each one's outputs (R, J, xi, path, fail, local counts) against the
+G = 1 build's bit for bit, and reads the kernel's device time per launch
+(chip_smoke.device_ms) back to back ("warm") and with 256 MB read before
+every call ("cold").  An alt build whose outputs are not the G = 1
+build's bit for bit (an earlier tree may round otherwise) is held instead
+to chip_smoke.py's limits for the kernel against its plain version
+(chip_smoke.compare_implicit), and its record says so ("within_limits").
+Prints one JSON line per case and dtype (with each build's registers and
+spill bytes), then the card's name and power limit, then {"ok": ...}:
+whether every build passed.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -46,18 +51,19 @@ from calibr8_tpu_torch.implicit_cost import FLOPS, ptxas_usage
 
 # the libraries of the team kernel: source -> C entry
 SOURCES = {"implicit_assembly": "c8_implicit_assembly",
+           "implicit_eig": "c8_implicit_eig_assembly",
            "implicit_barlat": "c8_implicit_barlat_assembly"}
 LANES = (1, 2, 4, 8, 16)
 
 
-def build(lanes, alt=None) -> tuple[dict, dict]:
-    """({source: {tag: C entry}}, {source: {tag: ptxas usage}}): tags
-    "rule", "G<n>" per lane count and, with `alt` a csrc/ directory,
-    "alt"."""
+def build(lanes, alt=None, sources=tuple(SOURCES)) -> tuple[dict, dict]:
+    """({source: {tag: C entry}}, {source: {tag: ptxas usage}}) of the
+    named sources: tags "rule", "G<n>" per lane count and, with `alt` a
+    csrc/ directory, "alt"."""
     out = kernels.BUILD_DIR / "implicit_sweep"
     out.mkdir(parents=True, exist_ok=True)
     nvcc, procs = kernels.nvcc_path(), {}
-    for name in SOURCES:
+    for name in sources:
         src = kernels.CSRC / f"{name}.cu"
         # tag -> (source, its headers' directory, extra flags)
         todo = {"rule": (src, kernels.CSRC, ())}
@@ -70,8 +76,8 @@ def build(lanes, alt=None) -> tuple[dict, dict]:
                    "-o", str(out / f"{name}-{tag}.so"), str(path)]
             log = open(out / f"{name}-{tag}.log", "w")
             procs[name, tag] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT), log)
-    fns = {n: {} for n in SOURCES}
-    usage = {n: {} for n in SOURCES}
+    fns = {n: {} for n in sources}
+    usage = {n: {} for n in sources}
     for (name, tag), (proc, log) in procs.items():
         proc.wait()
         log.close()
@@ -121,6 +127,7 @@ def sweep_case(fns, usage, label, deck, mesh, scale, dtype, reps, buf):
         torch.cuda.synchronize()
         results[tag] = (*outs, iters)
     ref = results["G1"]
+    el = cs.elem_inputs(prob, x, x_prev, xi_prev)
     hist = torch.bincount(ref[5].long(), minlength=bm.newton_iters + 1).tolist()
     rec = dict(case=label, library=lib, model=bm.name, dtype=dn, elements=E,
                newton_iters_hist=hist, builds={})
@@ -130,7 +137,14 @@ def sweep_case(fns, usage, label, deck, mesh, scale, dtype, reps, buf):
         equal = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(outs, ref))
         diff = {name: float((a.double() - b.double()).abs().max())
                 for name, a, b in zip(("R", "J", "xi"), outs[:3], ref[:3])}
-        ok &= equal
+        limits = None
+        if tag == "alt" and not equal:
+            good, limits = cs.compare_implicit(disc.spec, bm, outs[:5], ref[:5], outs[5], ref[5],
+                                               el)
+            limits["ok"] = good
+            ok &= good
+        else:
+            ok &= equal
         scratch = _outputs(disc.spec, bm, E, dtype, x.device)
 
         def one():
@@ -139,7 +153,7 @@ def sweep_case(fns, usage, label, deck, mesh, scale, dtype, reps, buf):
         # the kernel's name: implicit_team_kernel, or an earlier tree's
         # implicit_assembly_kernel
         rec["builds"][tag] = dict(
-            equal_to_G1=equal, max_abs_diff=diff,
+            equal_to_G1=equal, max_abs_diff=diff, within_limits=limits,
             cold_ms=cs.device_ms(one, reps, "implicit_", flush=lambda: buf.sum()),
             warm_ms=cs.device_ms(one, reps, "implicit_"),
             ptxas=usage[lib][tag].get(f"{dn} {bm.name}"))
@@ -153,8 +167,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--lanes", type=int, nargs="*", default=list(LANES))
     ap.add_argument("--cases", nargs="*", help="labels of chip_smoke.py's implicit cases "
-                                               "(default: every one of the two libraries)")
-    ap.add_argument("--alt", help="another csrc/ directory whose two sources build beside these")
+                                               "(default: every one of the three libraries)")
+    ap.add_argument("--alt", help="another csrc/ directory whose three sources build beside these")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -163,16 +177,19 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from calibr8_tpu_torch.mesh import generators
 
-    fns, usage = build(sorted({1, *args.lanes}), args.alt)
-    print(json.dumps({"ptxas": usage}), flush=True)
     meshes = {"cube32": generators.cube(32), "notch004": generators.notch2d(0.004)}
+    cases = [(label, deck, mesh, scale) for label, deck, mesh, scale in cs.IMPLICIT_CASES(meshes)
+             if deck["residuals"]["local residual"]["type"] in FLOPS
+             and (not args.cases or label in args.cases)]
+    # only the libraries of the cases asked for
+    libs = {IMPLICIT_LIB.get(deck["residuals"]["local residual"]["type"],
+                             ("implicit_assembly",))[0] for _, deck, _, _ in cases}
+    fns, usage = build(sorted({1, *args.lanes}), args.alt, [n for n in SOURCES if n in libs])
+    print(json.dumps({"ptxas": usage}), flush=True)
     # 256 MB read before each cold call: five times the H100's 50 MB L2
     buf = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
     ok = True
-    for label, deck, mesh, scale in cs.IMPLICIT_CASES(meshes):
-        model = deck["residuals"]["local residual"]["type"]
-        if model not in FLOPS or (args.cases and label not in args.cases):
-            continue
+    for label, deck, mesh, scale in cases:
         for dtype in (torch.float64, torch.float32):
             good, rec = sweep_case(fns, usage, label, deck, mesh, scale, dtype, args.reps, buf)
             ok &= good

@@ -24,13 +24,14 @@ Phases, in order; any failure exits non-zero without the result lines:
     hyper_J2_plane_strain and hypo_hill_plane_strain (mixed u/p), the
     finite-deformation cases with x != x_prev (every implicit library
     launches the team kernel, c8::implicit_team_kernel; the records of
-    implicit_assembly.cu and implicit_barlat.cu carry the instance's ptxas
-    registers and spill bytes and a bound that also counts the operations
-    this run's data needs, implicit_cost.FLOPS at PEAK_FLOPS, with the
-    time at the card's rate without FMA beside it); the eigensolver libraries (implicit_eig.cu,
-    implicit_barlat.cu) at cube n=32 small_hosford, hypo_hosford and
-    hypo_barlat (eig_deck); the hybrid's library (implicit_hybrid.cu) at
-    notch2D h=0.004 hybrid_hyper_J2_plane_stress (hybrid_deck), with the
+    implicit_assembly.cu, implicit_eig.cu and implicit_barlat.cu carry the
+    instance's ptxas registers and spill bytes and a bound that also
+    counts the operations this run's data needs, implicit_cost.FLOPS at
+    PEAK_FLOPS, with the time at the card's rate without FMA beside it);
+    the eigensolver libraries (implicit_eig.cu, implicit_barlat.cu) at cube
+    n=32 small_hosford, hypo_hosford and hypo_barlat (eig_deck); the
+    hybrid's library (implicit_hybrid.cu) at notch2D h=0.004
+    hybrid_hyper_J2_plane_stress (hybrid_deck), with the
     elements whose principal stresses nearly coincide counted and each
     element's J held to its conditioning (EIG_J_EPS); the EBE and both
     ELL kernels held once more
@@ -797,8 +798,9 @@ KERNELS = {
     "implicit_assembly": ("calibr8_tpu_torch/csrc/implicit_assembly.cu",
                           "calibr8_tpu/fem/pallas_assembly.py:496"),
     # kernel 1b's eigensolver twins: the line carries cube n=32
-    # small_hosford's figures and, in its `hypo_hosford` entry, that
-    # twin's; implicit_barlat's, cube n=32 hypo_barlat's
+    # small_hosford's figures and, in entries named by model, each Hosford
+    # twin's launches, figures, bounds and ptxas report; implicit_barlat's,
+    # cube n=32 hypo_barlat's
     "implicit_eig": ("calibr8_tpu_torch/csrc/implicit_eig.cu",
                      "calibr8_tpu/fem/pallas_assembly.py:496"),
     "implicit_barlat": ("calibr8_tpu_torch/csrc/implicit_barlat.cu",
@@ -1459,6 +1461,103 @@ def eig_one_minus_r(bm, xiT, gu, parT):
         tuple(parT[k0 + k] for k in range(9)), flat))) for k0 in (7, 16)))
 
 
+def compare_implicit(spec, bm, out_k, out_p, iters, iters_p, el):
+    """The implicit assembly's outputs out_k (R, J, xi, path, fail) and
+    local counts `iters` held against out_p and iters_p, another version's
+    on the same elements (`el`, elem_inputs' arrays), to IMPLICIT_LIMITS:
+    the elements on the same branch that converged in both compared, the
+    finite-deformation and eigensolver twins' elements whose local counts
+    differ to APART_FACTOR abs_tol, the eigensolver twins' J per element to
+    its conditioning bound (EIG_J_EPS) and their non-finite lanes counted
+    (EIG_NONFINITE_SHARE); failed elements under MAX_FAILED_SHARE.
+    Returns (ok, record)."""
+    from calibr8_tpu_torch.mechanics.global_residual import elem_kinematics
+
+    dn = str(out_p[0].dtype).split(".")[1]
+    E = iters.shape[0]
+    eig = getattr(bm, "freeze_path", False)
+    same_path = out_k[3] == out_p[3]
+    agree = float(same_path.double().mean())
+    same_iters = iters == iters_p
+    iters_agree = float(same_iters.double().mean())
+    # A failed element's state is the cap's last iterate, which the
+    # primal's Newton never uses (it backtracks on nfail > 0).
+    converged = (out_k[4] == 0) & (out_p[4] == 0)
+    compared = same_path & converged
+    # the twins with tolerance-stopped Newtons of many iterations: the
+    # finite-deformation ones and the eigensolver ones (30, line search)
+    split = bm.finite_deformation or eig
+    apart = compared & ~same_iters if split else torch.zeros_like(compared)
+    compared = compared & ~apart
+    apart_lim = APART_FACTOR * bm.abs_tol
+    # a non-finite output lane is counted, never masked
+    nonfinite = [~torch.isfinite(t.reshape(-1, E)).all(0) for t in (*out_k[:3], *out_p[:3])]
+    nf_k = nonfinite[0] | nonfinite[1] | nonfinite[2]
+    nf_p = nonfinite[3] | nonfinite[4] | nonfinite[5]
+    eig_rec = {}
+    jlim = None
+    if eig:
+        gu = elem_kinematics(spec, el["x_eT"], el["gN_T"])
+        gup = None if el["xp_eT"] is None else elem_kinematics(spec, el["xp_eT"], el["gN_T"])
+        parT = el["params_all"][el["es_ids"].long()].T
+        xi0 = bm.first_guess(el["xi_prev_T"], gu, parT, gup)
+        omr = torch.fmin(torch.fmin(eig_one_minus_r(bm, out_k[2], gu, parT),
+                                    eig_one_minus_r(bm, out_p[2], gu, parT)),
+                         eig_one_minus_r(bm, xi0, gu, parT))
+        compared = compared & ~nf_k & ~nf_p
+        apart = apart & ~nf_k & ~nf_p
+        jlim = torch.clamp(EIG_J_EPS * torch.finfo(out_p[0].dtype).eps / omr,
+                           min=IMPLICIT_LIMITS[dn]["J"])
+        eig_rec = dict(ill_conditioned=int((jlim > IMPLICIT_LIMITS[dn]["J"]).sum()),
+                       clip_sensitive=int((omr <= CLIP_SENSITIVE).sum()),
+                       min_one_minus_r=float(omr.min()),
+                       nonfinite_both=int((nf_k & nf_p).sum()))
+
+    def errors(mask):
+        return {name: rel_err(a[..., mask], b[..., mask]) if bool(mask.any()) else (0.0, 0.0)
+                for name, a, b in zip(("R", "J", "xi"), out_k[:3], out_p[:3])}
+
+    errs, apart_err = errors(compared), errors(apart)
+    fails = (int(out_k[4].sum()), int(out_p[4].sum()))
+    lim = IMPLICIT_LIMITS[dn]
+    if dn == "float64":
+        keys = ("xi", "R", "J")
+        ok = agree == 1.0 and bool(torch.equal(out_k[4], out_p[4]))
+    else:
+        keys = ("R", "J")
+        ok = agree >= lim["path_agree"]
+    if eig:
+        # J element by element against its conditioning bound (against
+        # max(APART_FACTOR abs_tol, that bound) where the counts differ)
+        Jmax = out_p[1][..., compared | apart].abs().max()
+        ratios = []
+        for mask, floor in ((compared, lim["J"]), (apart, apart_lim)):
+            Jk, Jp = out_k[1][..., mask], out_p[1][..., mask]
+            r = (Jk - Jp).abs().amax((0, 1)) / Jmax / torch.clamp(jlim[mask], min=floor)
+            ratios.append(float(r.max()) if r.numel() else 0.0)
+        eig_rec["J_err_over_limit_max"] = ratios[0]
+        eig_rec["J_err_over_limit_max_apart"] = ratios[1]
+        ok = ok and max(ratios) <= 1.0
+        ok = ok and all(errs[k][0] <= lim[k] for k in keys if k != "J")
+        ok = ok and all(apart_err[k][0] <= apart_lim for k in keys if k != "J")
+        ok = ok and int((nf_k | nf_p).sum()) <= EIG_NONFINITE_SHARE * E
+        ok = ok and (dn == "float32" or not bool((nf_k | nf_p).any()))
+    else:
+        ok = ok and all(errs[k][0] <= lim[k] and apart_err[k][0] <= apart_lim for k in keys)
+    ok = ok and (not split or iters_agree >= lim["iters_agree"])
+    ok = ok and max(fails) <= MAX_FAILED_SHARE * E
+    if not eig:
+        ok = ok and all(bool(torch.isfinite(t[..., converged]).all()) for t in out_k[:3])
+    return ok, dict(rel_err={k: v[0] for k, v in errs.items()},
+                    max_abs_err=max(e[1] for e in (*errs.values(), *apart_err.values())),
+                    nonfinite=(int(nf_k.sum()), int(nf_p.sum())), **eig_rec,
+                    path_agree=agree, plastic=int(out_p[3].sum()), elements=E,
+                    fail_kernel_plain=fails, compared=int(compared.sum()),
+                    iters_agree=iters_agree, iters_apart=int(apart.sum()),
+                    rel_err_iters_apart={k: v[0] for k, v in apart_err.items()},
+                    limits=dict(lim, apart=apart_lim if split else None))
+
+
 def check_implicit(label, prob, scale, results, ctx=None):
     """The implicit assembly against its plain version on prob's Disc, in
     prob's dtype; records (and returns) the check.  With a DistContext
@@ -1504,78 +1603,7 @@ def check_implicit(label, prob, scale, results, ctx=None):
     out_p = plain(iters_p)
     torch.cuda.synchronize()
     hist = torch.bincount(iters.long(), minlength=bm.newton_iters + 1).tolist()
-    same_path = out_k[3] == out_p[3]
-    agree = float(same_path.double().mean())
-    same_iters = iters == iters_p
-    iters_agree = float(same_iters.double().mean())
-    # A failed element's state is the cap's last iterate, which the
-    # primal's Newton never uses (it backtracks on nfail > 0).
-    converged = (out_k[4] == 0) & (out_p[4] == 0)
-    compared = same_path & converged
-    # the twins with tolerance-stopped Newtons of many iterations: the
-    # finite-deformation ones and the eigensolver ones (30, line search)
-    split = bm.finite_deformation or eig
-    apart = compared & ~same_iters if split else torch.zeros_like(compared)
-    compared = compared & ~apart
-    apart_lim = APART_FACTOR * bm.abs_tol
-    # a non-finite output lane is counted, never masked
-    nonfinite = [~torch.isfinite(t.reshape(-1, E)).all(0) for t in (*out_k[:3], *out_p[:3])]
-    nf_k = nonfinite[0] | nonfinite[1] | nonfinite[2]
-    nf_p = nonfinite[3] | nonfinite[4] | nonfinite[5]
-    eig_rec = {}
-    jlim = None
-    if eig:
-        gu = elem_kinematics(spec, el["x_eT"], el["gN_T"])
-        gup = None if x_prev is None else elem_kinematics(spec, el["xp_eT"], el["gN_T"])
-        parT = P[el["es_ids"].long()].T
-        xi0 = bm.first_guess(el["xi_prev_T"], gu, parT, gup)
-        omr = torch.fmin(torch.fmin(eig_one_minus_r(bm, out_k[2], gu, parT),
-                                    eig_one_minus_r(bm, out_p[2], gu, parT)),
-                         eig_one_minus_r(bm, xi0, gu, parT))
-        compared = compared & ~nf_k & ~nf_p
-        apart = apart & ~nf_k & ~nf_p
-        jlim = torch.clamp(EIG_J_EPS * torch.finfo(disc.dtype).eps / omr,
-                           min=IMPLICIT_LIMITS[dn]["J"])
-        eig_rec = dict(ill_conditioned=int((jlim > IMPLICIT_LIMITS[dn]["J"]).sum()),
-                       clip_sensitive=int((omr <= CLIP_SENSITIVE).sum()),
-                       min_one_minus_r=float(omr.min()),
-                       nonfinite_both=int((nf_k & nf_p).sum()))
-
-    def errors(mask):
-        return {name: rel_err(a[..., mask], b[..., mask]) if bool(mask.any()) else (0.0, 0.0)
-                for name, a, b in zip(("R", "J", "xi"), out_k[:3], out_p[:3])}
-
-    errs, apart_err = errors(compared), errors(apart)
-    fails = (int(out_k[4].sum()), int(out_p[4].sum()))
-    lim = IMPLICIT_LIMITS[dn]
-    if dn == "float64":
-        keys = ("xi", "R", "J")
-        ok = agree == 1.0 and bool(torch.equal(out_k[4], out_p[4]))
-    else:
-        keys = ("R", "J")
-        ok = agree >= lim["path_agree"]
-    if eig:
-        # J element by element against its conditioning bound (against
-        # max(APART_FACTOR abs_tol, that bound) where the counts differ)
-        Jmax = out_p[1][..., compared | apart].abs().max()
-        ratios = []
-        for mask, floor in ((compared, lim["J"]), (apart, apart_lim)):
-            Jk, Jp = out_k[1][..., mask], out_p[1][..., mask]
-            r = (Jk - Jp).abs().amax((0, 1)) / Jmax / torch.clamp(jlim[mask], min=floor)
-            ratios.append(float(r.max()) if r.numel() else 0.0)
-        eig_rec["J_err_over_limit_max"] = ratios[0]
-        eig_rec["J_err_over_limit_max_apart"] = ratios[1]
-        ok = ok and max(ratios) <= 1.0
-        ok = ok and all(errs[k][0] <= lim[k] for k in keys if k != "J")
-        ok = ok and all(apart_err[k][0] <= apart_lim for k in keys if k != "J")
-        ok = ok and int((nf_k | nf_p).sum()) <= EIG_NONFINITE_SHARE * E
-        ok = ok and (dn == "float32" or not bool((nf_k | nf_p).any()))
-    else:
-        ok = ok and all(errs[k][0] <= lim[k] and apart_err[k][0] <= apart_lim for k in keys)
-    ok = ok and (not split or iters_agree >= lim["iters_agree"])
-    ok = ok and max(fails) <= MAX_FAILED_SHARE * E
-    if not eig:
-        ok = ok and all(bool(torch.isfinite(t[..., converged]).all()) for t in out_k[:3])
+    ok, cmp = compare_implicit(spec, bm, out_k, out_p, iters, iters_p, el)
     extra = {}
     if ctx is not None:
         def single():
@@ -1602,16 +1630,20 @@ def check_implicit(label, prob, scale, results, ctx=None):
     lib = IMPLICIT_LIB.get(bm.name, ("implicit_assembly",))[0]
     team = {}
     if bm.name in FLOPS:
-        # implicit_assembly.cu and implicit_barlat.cu: the operations of
-        # c8::implicit_element (implicit_cost.FLOPS, counted on the host)
-        # that this run's data needs: A + B per local Newton update and, for
-        # the line search, T per trial up to the accepted one (the plain
-        # local Newton's count on the same inputs); at PEAK_FLOPS, and, as
-        # a figure beside the bound, at the card's rate without FMA
+        # implicit_assembly.cu, implicit_eig.cu and implicit_barlat.cu: the
+        # operations of c8::implicit_element (implicit_cost.FLOPS, counted
+        # on the host) that this run's data needs: A + B per local Newton
+        # update and, for the line search, T per trial up to the accepted
+        # one (the plain local Newton's count on the same inputs); at
+        # PEAK_FLOPS, and, as a figure beside the bound, at the card's rate
+        # without FMA
         trials = 0
         if eig:
+            gu = elem_kinematics(spec, el["x_eT"], el["gN_T"])
+            gup = None if x_prev is None else elem_kinematics(spec, el["xp_eT"], el["gN_T"])
             n_trials = torch.zeros(E, dtype=torch.int32, device=DEVICE)
-            implicit_newton(bm, el["xi_prev_T"], gu, parT, gup, trials=n_trials)
+            implicit_newton(bm, el["xi_prev_T"], gu, P[el["es_ids"].long()].T, gup,
+                            trials=n_trials)
             trials = int(n_trials.sum())
         flops = team_flops(bm.name, hist, trials)
         b_ms, b_by = bound(nbytes, flops, dn)
@@ -1632,17 +1664,9 @@ def check_implicit(label, prob, scale, results, ctx=None):
     worst = []
     if eig:
         worst = worst_elements(bm, out_k, out_p, el, spec, iters, iters_p)
-    rec = dict(kernel=kname, case=label, dtype=dn, **extra,
-               rel_err={k: v[0] for k, v in errs.items()},
-               max_abs_err=max(e[1] for e in (*errs.values(), *apart_err.values())),
-               nonfinite=(int(nf_k.sum()), int(nf_p.sum())), **eig_rec, worst_J=worst,
-               path_agree=agree, plastic=int(out_p[3].sum()), elements=E, fail_kernel_plain=fails,
-               compared=int(compared.sum()), iters_agree=iters_agree,
-               iters_apart=int(apart.sum()),
-               rel_err_iters_apart={k: v[0] for k, v in apart_err.items()},
+    rec = dict(kernel=kname, case=label, dtype=dn, **extra, **cmp, worst_J=worst,
                newton_iters_hist=hist, ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, **team, limits=dict(lim, apart=apart_lim if split else None),
-               ok=ok)
+               bound_by=b_by, **team, ok=ok)
     log(json.dumps(rec))
     if not ok:
         log(f"FAIL {kname} {label} {dn}")
@@ -2904,10 +2928,11 @@ def main(argv) -> int:
             r = r["forward"]
         entry = dict(name=name, route="cuda", source=src, replaces=repl,
                      launches=counts[name], **figures(r))
-        if name in ("implicit_assembly", "implicit_barlat"):
+        if name in ("implicit_assembly", "implicit_eig", "implicit_barlat"):
             # each instance's launches, figures, bounds by bytes and by
             # operations, and ptxas report (3D at cube n=32, the plane twins
-            # at notch2D h=0.004) beside hyper_J2's (implicit_assembly)
+            # at notch2D h=0.004) beside hyper_J2's (implicit_assembly) or
+            # small_hosford's (implicit_eig)
             for key, h in results.items():
                 if key[0] == name and key[2] == "float64":
                     model = key[1].split()[-1]
@@ -2916,9 +2941,6 @@ def main(argv) -> int:
                         launches=counts.get(f"{name}/{model}", 0), **figures(h),
                         **{k: h[k] for k in ("bytes_ms", "flops_ms", "flops_nofma_ms", "ptxas")},
                         float32={k: f32[k] for k in ("ms", "bound_ms", "bound_by", "ptxas")})
-        if name == "implicit_eig":
-            h = results[("implicit_eig", "cube n=32 hypo_hosford", "float64")]
-            entry["hypo_hosford"] = figures(h)
         if name == "fused_assembly":
             # the displacement-only rows (isotropic_elastic) beside small_J2's
             h = results[("fused_assembly", ISO_TIMED, "float64")]

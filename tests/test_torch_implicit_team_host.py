@@ -19,9 +19,12 @@ contraction (-ffp-contract=off, as the kernel libraries are built with
    the plain local Newton's count of the line-search trials that the
    sequential search needs (implicit_newton's `trials`);
  - the operations per element of every instance of implicit_assembly.cu
-   and implicit_barlat.cu, counted by c8::implicit_element on a counting
+   and implicit_barlat.cu (the Hosford twins of implicit_eig.cu:
+   tests/test_torch_implicit_eig_host.py, which builds HARNESS with
+   -DC8_HOSFORD_TWINS), counted by c8::implicit_element on a counting
    scalar (Flop: one per add, subtract, multiply, divide, square root and
-   function call) on the twin cases' states: they are A + (B + 4 T) iters
+   function call, none on a tangent slot that no seed reaches or on what
+   such zeros alone make) on the twin cases' states: they are A + (B + 4 T) iters
    for the element's local Newton count iters (implicit_element runs all
    four trials), and one trial (c8::line_search_trial) is T, with the (A,
    B, T) of calibr8_tpu_torch/implicit_cost.py FLOPS, which chip_smoke.py
@@ -64,17 +67,40 @@ HARNESS = r"""
 
 namespace c8 {
 // a double that counts the operations done on it: add / subtract,
-// multiply, divide, square root (and rsqrt), other functions
+// multiply, divide, square root (and rsqrt), other functions.  A tangent
+// slot that no seed reaches (c8::tangent_zero, c8::zero_like) is a known
+// zero (z), and so is what these operations make of known zeros: the
+// operations that the function does not need, x + 0, x - 0, 0 - x,
+// x * 0, 0 / x, sqrt(0), -0 and |0| on a known zero, are free.  Every
+// value is computed all the same, so the control flow is the double's.
 struct Flop {
   double v;
+  bool z;
   static inline thread_local long long ops[5];
   Flop() = default;
-  Flop(double x) : v(x) {}
-  friend Flop operator+(Flop a, Flop b) { ++ops[0]; return a.v + b.v; }
-  friend Flop operator-(Flop a, Flop b) { ++ops[0]; return a.v - b.v; }
-  friend Flop operator*(Flop a, Flop b) { ++ops[1]; return a.v * b.v; }
-  friend Flop operator/(Flop a, Flop b) { ++ops[2]; return a.v / b.v; }
-  friend Flop operator-(Flop a) { return -a.v; }
+  Flop(double x) : v(x), z(false) {}
+  static Flop of(double x, bool zero) {
+    Flop f(x);
+    f.z = zero;
+    return f;
+  }
+  friend Flop operator+(Flop a, Flop b) {
+    if (!a.z && !b.z) ++ops[0];
+    return of(a.v + b.v, a.z && b.z);
+  }
+  friend Flop operator-(Flop a, Flop b) {
+    if (!a.z && !b.z) ++ops[0];
+    return of(a.v - b.v, a.z && b.z);
+  }
+  friend Flop operator*(Flop a, Flop b) {
+    if (!a.z && !b.z) ++ops[1];
+    return of(a.v * b.v, a.z || b.z);
+  }
+  friend Flop operator/(Flop a, Flop b) {
+    if (!a.z) ++ops[2];
+    return of(a.v / b.v, a.z);
+  }
+  friend Flop operator-(Flop a) { return of(-a.v, a.z); }
   friend bool operator<(Flop a, Flop b) { return a.v < b.v; }
   friend bool operator<=(Flop a, Flop b) { return a.v <= b.v; }
   friend bool operator>(Flop a, Flop b) { return a.v > b.v; }
@@ -84,7 +110,13 @@ struct Flop {
 };
 template <>
 struct scalar_like<Flop> : std::true_type {};
-inline Flop c8_sqrt(Flop a) { ++Flop::ops[3]; return std::sqrt(a.v); }
+template <>
+inline Flop tangent_zero<Flop>() { return Flop::of(0.0, true); }
+inline Flop zero_like(const Flop& x) { return Flop::of(0.0, x.z); }
+inline Flop c8_sqrt(Flop a) {
+  if (!a.z) ++Flop::ops[3];
+  return Flop::of(std::sqrt(a.v), a.z);
+}
 inline Flop c8_rsqrt(Flop a) { ++Flop::ops[3]; return 1.0 / std::sqrt(a.v); }
 inline Flop c8_exp(Flop a) { ++Flop::ops[4]; return std::exp(a.v); }
 inline Flop c8_log(Flop a) { ++Flop::ops[4]; return std::log(a.v); }
@@ -94,7 +126,7 @@ inline Flop c8_sin(Flop a) { ++Flop::ops[4]; return std::sin(a.v); }
 inline Flop c8_acos(Flop a) { ++Flop::ops[4]; return std::acos(a.v); }
 inline Flop c8_tanh(Flop a) { ++Flop::ops[4]; return std::tanh(a.v); }
 inline Flop c8_log1p(Flop a) { ++Flop::ops[4]; return std::log1p(a.v); }
-inline Flop c8_abs(Flop a) { return std::fabs(a.v); }
+inline Flop c8_abs(Flop a) { return Flop::of(std::fabs(a.v), a.z); }
 inline bool finite(Flop a) { return std::isfinite(a.v); }
 }  // namespace c8
 
@@ -340,6 +372,11 @@ int main(int argc, char** argv) {
   in.quad = rd<double>(f, in.npts * npe + in.npts + npe * npe);
   FILE* o = fopen(argv[2], "wb");
   switch (model) {
+#ifdef C8_HOSFORD_TWINS
+    // tests/test_torch_implicit_eig_host.py's build: the Hosford twins only
+    case 9: run<c8::SmallHosford>(in, o); break;
+    case 10: run<c8::HypoHosford>(in, o); break;
+#else
     case 0: run<c8::SmallHill>(in, o); break;
     case 1: run<c8::SmallHillPlaneStrain>(in, o); break;
     case 2: run<c8::SmallHillPlaneStress>(in, o); break;
@@ -350,6 +387,7 @@ int main(int argc, char** argv) {
     case 7: run<c8::HypoHillPlaneStrain>(in, o); break;
     case 8: run<c8::HypoHillPlaneStress>(in, o); break;
     case 11: run<c8::HypoBarlat>(in, o); break;
+#endif
     default: return 3;
   }
   fclose(o);
@@ -357,7 +395,10 @@ int main(int argc, char** argv) {
 }
 """
 
-# the instances of the two libraries that launch the team kernel
+# the Hosford twins (implicit_eig.cu), built and counted by
+# tests/test_torch_implicit_eig_host.py (-DC8_HOSFORD_TWINS)
+HOSFORD_MODELS = ("small_hosford", "hypo_hosford")
+# the instances of the two libraries that this file checks
 TEAM_MODELS = ("small_hill", "small_hill_plane_strain", "small_hill_plane_stress", "hyper_J2",
                "hyper_J2_plane_strain", "hyper_J2_plane_stress", "hypo_hill",
                "hypo_hill_plane_strain", "hypo_hill_plane_stress", "hypo_barlat")
@@ -369,21 +410,19 @@ TEAM_CASES = (("hypo_barlat", CUBE2, 0.02), ("hypo_barlat", CUBE2, 0.1),
               ("hyper_J2_plane_stress", NOTCH, 0.01))
 
 
-@pytest.fixture(scope="module")
-def harness(tmp_path_factory):
+def build_harness(d, builds, timeout=300):
+    """Build HARNESS into directory d once per entry of `builds` ({mode:
+    extra g++ flags}), all side by side; returns run(mode, name, header,
+    scalars, params, *arrays), the mode's output bytes on those inputs."""
     gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the host harness of csrc/c8_implicit.cuh")
-    d = tmp_path_factory.mktemp("team_host")
     src = d / "harness.cpp"
     src.write_text(HARNESS)
-    # the team harness and the counting one, built side by side
     procs = {mode: subprocess.Popen(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread", *defs, "-I", str(CSRC),
          str(src), "-o", str(d / mode)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for mode, defs in (("team", ()), ("count", ("-DC8_COUNT",)))}
+        for mode, defs in builds.items()}
     for mode, p in procs.items():
-        out = p.communicate(timeout=300)[0]
+        out = p.communicate(timeout=timeout)[0]
         assert p.returncode == 0, out.decode()[-4000:]
 
     def run(mode, name, header, scalars, params, *arrays):
@@ -398,6 +437,15 @@ def harness(tmp_path_factory):
         return out.read_bytes()
 
     return run
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ to build the host harness of csrc/c8_implicit.cuh")
+    # the team harness and the counting one, built side by side
+    return build_harness(tmp_path_factory.mktemp("team_host"),
+                         {"team": (), "count": ("-DC8_COUNT",)})
 
 
 def twin_state(name, mesh, scale):
@@ -500,7 +548,9 @@ def plain_trials(prob, x, x_prev, xi_prev):
 
 
 def test_operation_counts_match_flops_table(harness):
-    assert sorted(FLOPS) == sorted(TEAM_MODELS)
+    # this file counts TEAM_MODELS; tests/test_torch_implicit_eig_host.py
+    # the Hosford twins, the table's other rows
+    assert sorted(FLOPS) == sorted(TEAM_MODELS + HOSFORD_MODELS)
     for name in TEAM_MODELS:
         prob, x, x_prev, xi_prev = twin_state(name, NOTCH if "plane" in name else CUBE2, 0.02)
         E = prob.disc.n_elem
