@@ -177,13 +177,17 @@ C8_HD S sigma_yield_power(const S& alpha, const T* par) {
 template <typename T>
 C8_HD T bulk_modulus(const T* par) { return par[0] / (T(3) * (T(1) - T(2) * par[1])); }
 
+// the constants of an element that a model's residual reads (M::ElemConst,
+// c8_implicit.cuh): none
+struct NoConst {};
+
 // the blended zeta, Ie and alpha rows of the two plane variants, from
 // the trial (zeta_tr, Ie_tr); alpha at xi[M::ALPHA], M::sigma_yield its
-// hardening; C gets [zeta voigt (3), Ie] at 0..3 and alpha's row at
-// ALPHA.  Returns the path.
-template <typename M, typename T, typename S>
+// hardening, which also takes the element's constants kc; C gets [zeta
+// voigt (3), Ie] at 0..3 and alpha's row at ALPHA.  Returns the path.
+template <typename M, typename T, typename S, typename K = NoConst>
 C8_HD int hyper2d_rows(const S* xi, const T* xip, const S zeta_tr[2][2], const S& Ie_tr,
-                       const T* par, T abs_tol, S* C) {
+                       const T* par, T abs_tol, S* C, const K& kc = K()) {
   constexpr int AI = M::ALPHA;
   const T mu = shear_modulus(par);
   S zeta[2][2], zeta3[3][3], s3[3][3];
@@ -195,7 +199,7 @@ C8_HD int hyper2d_rows(const S* xi, const T* xip, const S zeta_tr[2][2], const S
 #pragma unroll
     for (int j = 0; j < 3; ++j) s3[i][j] = mu * zeta3[i][j];
   const S s_mag = norm_eps<3>(s3);
-  const S f = (s_mag - T(C8_SQRT_23) * M::sigma_yield(alpha, par)) / mu;
+  const S f = (s_mag - T(C8_SQRT_23) * M::sigma_yield(alpha, par, kc)) / mu;
   const int path = val(f) >= -abs_tol ? 1 : 0;
   const T w = T(path), wc = T(1) - w;
   const S sc = mu / s_mag;
@@ -332,7 +336,7 @@ struct HyperJ2PlaneStrain {
 
   // Y + K alpha + (Y_inf - Y)(1 - exp(-delta alpha))
   template <typename S>
-  C8_HD static S sigma_yield(const S& alpha, const T* par) {
+  C8_HD static S sigma_yield(const S& alpha, const T* par, NoConst = NoConst()) {
     return (par[3] + par[2] * alpha) + (par[4] - par[3]) * (T(1) - c8_exp((-par[5]) * alpha));
   }
 
@@ -408,7 +412,7 @@ struct HyperJ2PlaneStress {
   static constexpr bool MIXED = false, FINITE = true;
 
   template <typename S>
-  C8_HD static S sigma_yield(const S& alpha, const T* par) {
+  C8_HD static S sigma_yield(const S& alpha, const T* par, NoConst = NoConst()) {
     return sigma_yield_power(alpha, par);
   }
 
@@ -464,18 +468,19 @@ struct HyperJ2PlaneStress {
       }
   }
 
-  // Self names the struct whose sigma_yield the rows take (the hybrid of
-  // c8_hybrid.cuh passes itself)
-  template <typename S, typename Self = HyperJ2PlaneStress>
+  // Self names the struct whose sigma_yield the rows take, and kc its
+  // element's constants (the hybrid of c8_hybrid.cuh passes itself and its
+  // NN(0))
+  template <typename S, typename Self = HyperJ2PlaneStress, typename K = NoConst>
   C8_HD static int residual(const S* xi, const T* xip, const S gu[2][2], const T gup[2][2],
-                            const T* par, T abs_tol, S* C) {
+                            const T* par, T abs_tol, S* C, const K& kc = K()) {
     const T mu = shear_modulus(par);
     const T kappa = bulk_modulus(par);
     const S lam_z = xi[4];
     S be3[3][3], zt[2][2], Ie_tr;
     be_bar_3d(xip, gu, gup, lam_z, be3);
     trial_state(be3, zt, Ie_tr);
-    const int path = hyper2d_rows<Self>(xi, xip, zt, Ie_tr, par, abs_tol, C);
+    const int path = hyper2d_rows<Self>(xi, xip, zt, Ie_tr, par, abs_tol, C, kc);
     // the plane-stress constraint on the out-of-plane stretch
     const S zeta_zz = -(xi[0] + xi[1]);
     S F[2][2];

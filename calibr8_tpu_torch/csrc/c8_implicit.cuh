@@ -33,7 +33,12 @@
 // already.
 // A model's parameters are copied into registers (NPAR of them), or, for
 // a model with RUNTIME_PAR (the hybrid, whose network the deck sizes),
-// read in place from its element set's row in global memory.
+// read in place from its element set's row in global memory.  A model
+// with an ElemConst (the hybrid's NN(0)) forms it once per element, after
+// the gather, and its residual reads it.  A model may ask the launch for a
+// slab of shared memory per thread (implicit_launch's slab_words: the
+// hybrid's deeper networks), which lies after the team's own words, at
+// implicit_slab_at().
 //
 // The arithmetic follows calibr8_tpu's fused Pallas kernel in its
 // implicit mode (fem/pallas_assembly.py:242-482) and its local Newton
@@ -126,16 +131,34 @@ template <typename M>
 struct has_freeze_path<M, std::void_t<decltype(M::FREEZE_PATH)>>
     : std::integral_constant<bool, M::FREEZE_PATH> {};
 
+// whether model M has constants of its element (M::ElemConst, formed once
+// by M::elem_const(par, kc) after the gather: the hybrid's NN(0)), which
+// its residual takes after C
+template <typename M, typename = void>
+struct has_elem_const : std::false_type {};
+template <typename M>
+struct has_elem_const<M, std::void_t<typename M::ElemConst>> : std::true_type {};
+template <typename M, bool = has_elem_const<M>::value>
+struct elem_const_of {
+  typedef NoConst type;
+};
+template <typename M>
+struct elem_const_of<M, true> {
+  typedef typename M::ElemConst type;
+};
+
 // C at xi; returns its path.  FREEZE_PATH models take the branch path_in
 // (-1: the one xi selects), the others always the one xi selects.  gu
 // (any scalar) is read by models without the precompute hook, pre by
 // models with it.  ln, the lanes that split the yield surface's own seeds
 // (c8_dual.cuh SoloLane / TeamLane), goes to the FREEZE_PATH models (the
-// eigensolver twins of c8_hosford.cuh).
-template <typename M, typename T, typename S, typename G, typename P, typename L = SoloLane>
+// eigensolver twins of c8_hosford.cuh); kc, the element's constants, to
+// the models that have them (the others' residuals do not take it).
+template <typename M, typename T, typename S, typename G, typename P, typename L = SoloLane,
+          typename K = NoConst>
 C8_HD int local_residual(const S* xi, const T* xip, const G gu[M::D][M::D],
                          const T gup[M::D][M::D], const P& pre, const T* par, T abs_tol,
-                         int path_in, S* C, const L& ln = L()) {
+                         int path_in, S* C, const L& ln = L(), const K& kc = K()) {
   if constexpr (has_precompute<M>::value) {
     if constexpr (has_freeze_path<M>::value)
       return M::residual_pre(xi, xip, pre, par, abs_tol, path_in, C, ln);
@@ -144,6 +167,8 @@ C8_HD int local_residual(const S* xi, const T* xip, const G gu[M::D][M::D],
   } else {
     if constexpr (has_freeze_path<M>::value)
       return M::residual(xi, xip, gu, gup, par, abs_tol, path_in, C, ln);
+    else if constexpr (has_elem_const<M>::value)
+      return M::residual(xi, xip, gu, gup, par, abs_tol, C, kc);
     else
       return M::residual(xi, xip, gu, gup, par, abs_tol, C);
   }
@@ -175,12 +200,14 @@ C8_HD void gauss_solve(T Ab[N][N + M]) {
 // an element's gathered inputs: nodal u and p, grad_N, detJ, h, the local
 // state xi_prev, the parameters (par(): in registers, or, with
 // RUNTIME_PAR, in place in global memory) and grad_u and the frozen
-// previous grad_u (FINITE models only; zero otherwise)
+// previous grad_u (FINITE models only; zero otherwise); the model's
+// constants of the element (kc, where it has them)
 template <typename T, typename M>
 struct ElemData {
   static constexpr int D = M::D, NPE = D + 1;
   T u[NPE][D], p[NPE], gN[NPE][D], dJ, hh, par_reg[M::NPAR], xip[M::NXI], gu[D][D], gup[D][D];
   const T* par_rt;
+  typename elem_const_of<M>::type kc;
   C8_HD const T* par() const { return has_runtime_par<M>::value ? par_rt : par_reg; }
 };
 
@@ -233,6 +260,7 @@ C8_HD void gather_element(int e, int E, const T* __restrict__ x, const T* __rest
       el.gu[i][j] = acc;
       el.gup[i][j] = accp;
     }
+  if constexpr (has_elem_const<M>::value) M::elem_const(el.par(), el.kc);
 }
 
 // the state-independent pressure data (frozen under the seeds)
@@ -465,7 +493,7 @@ C8_HD void implicit_element(
       xs[k] = SX(xi[k]);
       xs[k].d[k] = T(1);
     }
-    local_residual<M>(xs, xip, gux, el.gup, pre_n, par, abs_tol, path0, C);
+    local_residual<M>(xs, xip, gux, el.gup, pre_n, par, abs_tol, path0, C, SoloLane(), el.kc);
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;
@@ -524,7 +552,8 @@ C8_HD void implicit_element(
     // the branch of the final xi (pathfn), or the frozen one
     typename pre_of<M, SV>::type pre_v;
     if constexpr (PRE) M::precompute(gv, el.gup, par, pre_v);
-    path = local_residual<M>(xv, xip, gv, el.gup, pre_v, par, abs_tol, path0, C);
+    path = local_residual<M>(xv, xip, gv, el.gup, pre_v, par, abs_tol, path0, C, SoloLane(),
+                             el.kc);
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;
@@ -688,7 +717,7 @@ C8_HD void implicit_team_element(
 #pragma unroll
       for (int j = 0; j < NLX; ++j) xs[k].d[j] = j * G + l == k ? T(1) : T(0);
     }
-    local_residual<M>(xs, xip, gux, el.gup, pre_n, par, abs_tol, path0, C, lanes);
+    local_residual<M>(xs, xip, gux, el.gup, pre_n, par, abs_tol, path0, C, lanes, el.kc);
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;
@@ -768,7 +797,7 @@ C8_HD void implicit_team_element(
     SV C[NXI];
     typename pre_of<M, SV>::type pre_v;
     if constexpr (PRE) M::precompute(gv, el.gup, par, pre_v);
-    path = local_residual<M>(xv, xip, gv, el.gup, pre_v, par, abs_tol, path0, C, lanes);
+    path = local_residual<M>(xv, xip, gv, el.gup, pre_v, par, abs_tol, path0, C, lanes, el.kc);
     T rn2 = C[0].v * C[0].v;
 #pragma unroll
     for (int k = 1; k < NXI; ++k) rn2 = rn2 + C[k].v * C[k].v;
@@ -982,16 +1011,24 @@ __global__ void __launch_bounds__(TeamLayout<T, Model<T>>::THREADS) implicit_tea
   }
 }
 
+// where a model's slab of shared memory starts in its block's dynamic
+// shared memory: after the team's words, at 16 bytes
+template <typename T, typename M>
+constexpr size_t implicit_slab_at() {
+  return (TeamLayout<T, M>::SMEM + 15) / 16 * 16;
+}
+
 // one launch of Model's team kernel on `stream`; returns the launch's
 // cudaError_t.  quad = [N1 (npts, npe) | w1 (npts) | mass (npe, npe)],
-// row-major doubles.
+// row-major doubles.  slab_words > 0: each thread also gets that many
+// words of T of shared memory at implicit_slab_at().
 template <typename T, template <typename> class Model>
 int implicit_launch(int E, const void* x, const void* x_prev, const void* edofs_T,
                     const void* xi_prev, const void* gN_T, const void* detJ, const void* h,
                     const void* params, const void* es_ids, const double* quad, int npts,
                     double stab_half, double thick, double abs_tol, double fail_tol, void* R_T,
                     void* J_T, void* xi_T, void* path, void* fail, void* iters,
-                    cudaStream_t stream) {
+                    cudaStream_t stream, int slab_words = 0) {
   constexpr int D = Model<T>::D, NPE = D + 1;
   Quad<T> q;
   for (int a = 0; a < 4; ++a) {
@@ -1007,13 +1044,15 @@ int implicit_launch(int E, const void* x, const void* x_prev, const void* edofs_
   const T meas0 = T(D == 2 ? 0.5 : 1.0 / 6.0);
   if (E <= 0) return (int)cudaGetLastError();
   typedef TeamLayout<T, Model<T>> L;
-  if (L::SMEM > 48 * 1024) {
+  const size_t smem = slab_words > 0 ? implicit_slab_at<T, Model<T>>() +
+                                           (size_t)slab_words * sizeof(T) * L::THREADS
+                                     : L::SMEM;
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        implicit_team_kernel<T, Model>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)L::SMEM);
+        implicit_team_kernel<T, Model>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  implicit_team_kernel<T, Model><<<(E + L::EB - 1) / L::EB, L::THREADS, L::SMEM, stream>>>(
+  implicit_team_kernel<T, Model><<<(E + L::EB - 1) / L::EB, L::THREADS, smem, stream>>>(
       E, (const T*)x, (const T*)x_prev, (const int*)edofs_T, (const T*)xi_prev, (const T*)gN_T,
       (const T*)detJ, (const T*)h, (const T*)params, (const int*)es_ids, q, meas0, T(stab_half),
       T(thick), T(abs_tol), T(fail_tol), (T*)R_T, (T*)J_T, (T*)xi_T, (int*)path, (int*)fail,
@@ -1022,14 +1061,16 @@ int implicit_launch(int E, const void* x, const void* x_prev, const void* edofs_
 }
 
 // the body of a library's C entry point: `model` selects Models[model],
-// `dtype` float (0) or double (1); returns the launch's cudaError_t
+// `dtype` float (0) or double (1); slab_words as for implicit_launch;
+// returns the launch's cudaError_t
 template <template <typename> class... Models>
 int implicit_team_entry(int device, int dtype, int model, int E, const void* x,
                         const void* x_prev, const void* edofs_T, const void* xi_prev,
                         const void* gN_T, const void* detJ, const void* h, const void* params,
                         const void* es_ids, const double* quad, int npts, double stab_half,
                         double thick, double abs_tol, double fail_tol, void* R_T, void* J_T,
-                        void* xi_T, void* path, void* fail, void* iters, void* stream) {
+                        void* xi_T, void* path, void* fail, void* iters, void* stream,
+                        int slab_words = 0) {
   if (npts < 1 || npts > 4 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -1041,11 +1082,11 @@ int implicit_team_entry(int device, int dtype, int model, int E, const void* x,
                     ? implicit_launch<float, Models>(
                           E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params, es_ids, quad,
                           npts, stab_half, thick, abs_tol, fail_tol, R_T, J_T, xi_T, path, fail,
-                          iters, s)
+                          iters, s, slab_words)
                     : implicit_launch<double, Models>(
                           E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params, es_ids, quad,
                           npts, stab_half, thick, abs_tol, fail_tol, R_T, J_T, xi_T, path, fail,
-                          iters, s))
+                          iters, s, slab_words))
         : 0),
    ...);
   return rc;

@@ -3,8 +3,8 @@ csrc/c8_implicit.cuh) costs: its operations per element, and the
 registers and spill bytes that ptxas reports for its instances.
 chip_smoke.py and implicit_sweep.py read both.
 
-FLOPS holds, for each instance of implicit_assembly.cu, implicit_eig.cu
-and implicit_barlat.cu, (A, B, T): an element whose local Newton takes
+FLOPS holds, for each instance of implicit_assembly.cu, implicit_eig.cu,
+implicit_barlat.cu and implicit_hybrid.cu, (A, B, T): an element whose local Newton takes
 `iters` updates and whose line search (FREEZE_PATH models only) needs
 `trials` trials in all, up to the accepted one of each update, does A + B
 iters + T trials operations, one per add, subtract, multiply, divide,
@@ -13,8 +13,11 @@ tangent slot that no seed reaches (a zero by construction, such as the
 local state's slots of the polar factors of grad_u, c8_dual.cuh
 tangent_zero) or on what such zeros alone make.
 tests/test_torch_implicit_team_host.py (the Hosford twins:
-tests/test_torch_implicit_eig_host.py) counts them with
-c8::implicit_element on a counting scalar and checks this table.
+tests/test_torch_implicit_eig_host.py; the hybrid:
+tests/test_torch_implicit_hybrid_host.py) counts them with
+c8::implicit_element on a counting scalar and checks this table.  The
+hybrid's row holds for its network HYBRID_NET alone (chip_smoke.py's
+decks), which chip_smoke.py checks before it prices a launch.
 """
 
 from __future__ import annotations
@@ -39,16 +42,21 @@ FLOPS = {
     "hypo_barlat": (72663, 11061, 1277),
     "small_hosford": (14011, 5239, 615),
     "hypo_hosford": (60392, 5259, 610),
+    "hybrid_hyper_J2_plane_stress": (3813, 1032, 0),
 }
+# the network the hybrid's row was counted at
+HYBRID_NET = {"activation function": "sigmoid", "topology": [1, 4, 1], "input scale": 1.0,
+              "output scale": 10.0}
 # each instance's model struct (c8_hill.cuh, c8_hyper.cuh, c8_hypo.cuh,
-# c8_hosford.cuh), as ptxas names the kernels' instances
+# c8_hosford.cuh, c8_hybrid.cuh), as ptxas names the kernels' instances
 MODEL_STRUCT = {"small_hill": "SmallHill", "small_hill_plane_strain": "SmallHillPlaneStrain",
                 "small_hill_plane_stress": "SmallHillPlaneStress", "hyper_J2": "HyperJ2",
                 "hyper_J2_plane_strain": "HyperJ2PlaneStrain",
                 "hyper_J2_plane_stress": "HyperJ2PlaneStress", "hypo_hill": "HypoHill",
                 "hypo_hill_plane_strain": "HypoHillPlaneStrain",
                 "hypo_hill_plane_stress": "HypoHillPlaneStress", "hypo_barlat": "HypoBarlat",
-                "small_hosford": "SmallHosford", "hypo_hosford": "HypoHosford"}
+                "small_hosford": "SmallHosford", "hypo_hosford": "HypoHosford",
+                "hybrid_hyper_J2_plane_stress": "HybridHyperJ2PlaneStress"}
 # lanes per SM for one float64 or float32 add or multiply a clock (H100)
 LANES_PER_SM = {torch.float64: 64, torch.float32: 128}
 
@@ -89,9 +97,10 @@ _KERNEL = re.compile(r"implicit_(?:team|assembly)_kernelI([df])NS_(\d+)")
 
 
 def ptxas_usage(log: str) -> dict:
-    """{"<dtype> <model>": dict(registers, spill_stores, spill_loads)} of
-    the implicit kernel's instances in a library's ptxas -v report (the
-    team kernel, or an earlier tree's thread-per-element one)."""
+    """{"<dtype> <model>": dict(registers, stack_frame, spill_stores,
+    spill_loads)} of the implicit kernel's instances in a library's ptxas
+    -v report (the team kernel, or an earlier tree's thread-per-element
+    one); bytes, the frame the kernel's own."""
     models = {v: k for k, v in MODEL_STRUCT.items()}
     out, key = {}, None
     for line in log.splitlines():
@@ -109,9 +118,11 @@ def ptxas_usage(log: str) -> dict:
             continue
         # the entry's own lines come first; a callee's properties (the
         # float64 trig slow path) may follow its register line
-        s = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        s = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
         if s and "spill_stores" not in out[key]:
-            out[key].update(spill_stores=int(s.group(1)), spill_loads=int(s.group(2)))
+            out[key].update(stack_frame=int(s.group(1)), spill_stores=int(s.group(2)),
+                            spill_loads=int(s.group(3)))
         r = re.search(r"Used (\d+) registers", line)
         if r:
             out[key]["registers"] = int(r.group(1))

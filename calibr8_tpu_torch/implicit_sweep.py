@@ -7,28 +7,29 @@ c8::implicit_team_lanes.
 
 Run it from the repository's root: it takes chip_smoke.py's implicit
 cases (its decks, states and float32 local tolerances).  Builds each of
-the three sources whose instances implicit_cost.FLOPS counts,
-implicit_assembly.cu, implicit_eig.cu and implicit_barlat.cu, as the
-program builds it (G from the rule, tag "rule"), once more per G with the
+the four sources whose instances implicit_cost.FLOPS counts,
+implicit_assembly.cu, implicit_eig.cu, implicit_barlat.cu and
+implicit_hybrid.cu, as the program builds it (G from the rule, tag "rule"), once more per G with the
 lanes fixed (-DC8_IMPLICIT_TEAM=G, tag "G<n>"; G = 1, one thread per
 element running c8::implicit_element, is always built and is the
-reference), and, with --alt, the three sources of another csrc/ directory
+reference), and, with --alt, the same sources of another csrc/ directory
 (an earlier tree's kernel, `git archive` of its commit; tag "alt"); one
 nvcc each, all started together, into _build/implicit_sweep/ (each
 build's ptxas report beside it).  Then, at each case of chip_smoke.py's
-phase 2 whose twin one of the three libraries holds (cube n=32
+phase 2 whose twin one of the four libraries holds (cube n=32
 small_hill, hyper_J2, hypo_hill, small_hosford, hypo_hosford (their pull
 tilted, chip_smoke.eig_deck), hypo_barlat; notch2D h=0.004 the six plane
-twins), in float64 and float32, it calls every build on the same inputs,
+twins and the hybrid, chip_smoke.HYBRID_TIMED), in float64 and float32, it calls every build on the same inputs,
 holds each one's outputs (R, J, xi, path, fail, local counts) against the
-G = 1 build's bit for bit, and reads the kernel's device time per launch
+G = 1 build's bit for bit (and records whether they are torch.equal, which
+takes -0 for 0), and reads the kernel's device time per launch
 (chip_smoke.device_ms) back to back ("warm") and with 256 MB read before
 every call ("cold").  An alt build whose outputs are not the G = 1
 build's bit for bit (an earlier tree may round otherwise) is held instead
 to chip_smoke.py's limits for the kernel against its plain version
 (chip_smoke.compare_implicit), and its record says so ("within_limits").
 Prints one JSON line per case and dtype (with each build's registers and
-spill bytes), then the card's name and power limit, then {"ok": ...}:
+stack frame and spill bytes), then the card's name and power limit, then {"ok": ...}:
 whether every build passed.  Needs a CUDA device.
 """
 
@@ -45,14 +46,15 @@ import torch
 
 from calibr8_tpu_torch import kernels
 from calibr8_tpu_torch.fem.fused_assembly import (
-    _IMPLICIT_ARGTYPES, IMPLICIT_LIB, _outputs, implicit_args,
+    _HYBRID_ARGTYPES, _IMPLICIT_ARGTYPES, IMPLICIT_LIB, _outputs, hybrid_net_args, implicit_args,
 )
 from calibr8_tpu_torch.implicit_cost import FLOPS, ptxas_usage
 
 # the libraries of the team kernel: source -> C entry
 SOURCES = {"implicit_assembly": "c8_implicit_assembly",
            "implicit_eig": "c8_implicit_eig_assembly",
-           "implicit_barlat": "c8_implicit_barlat_assembly"}
+           "implicit_barlat": "c8_implicit_barlat_assembly",
+           "implicit_hybrid": "c8_implicit_hybrid_assembly"}
 LANES = (1, 2, 4, 8, 16)
 
 
@@ -89,7 +91,9 @@ def build(lanes, alt=None, sources=tuple(SOURCES)) -> tuple[dict, dict]:
         lib.c8_error_string.argtypes = [ctypes.c_int]
         lib.c8_error_string.restype = ctypes.c_char_p
         fn = getattr(lib, SOURCES[name])
-        fn.argtypes = list(_IMPLICIT_ARGTYPES)
+        # the hybrid's entry takes its network's description after the rest
+        fn.argtypes = list(_IMPLICIT_ARGTYPES) + (
+            _HYBRID_ARGTYPES if name == "implicit_hybrid" else [])
         fn.restype = ctypes.c_int
         fns[name][tag] = (fn, lib)
     return fns, usage
@@ -113,9 +117,11 @@ def sweep_case(fns, usage, label, deck, mesh, scale, dtype, reps, buf):
     P = prob.params0
     dn = str(dtype).split(".")[1]
 
+    net = hybrid_net_args(bm, P) if lib == "implicit_hybrid" else ()
+
     def run(fn, lib_obj, outs, iters):
         err = fn(*implicit_args(disc.spec, bm, E, x, x_prev, disc.edofs_T, xi_prev, disc.gN_T,
-                                disc.detJ, disc.h, P, disc.es_ids32, outs, iters))
+                                disc.detJ, disc.h, P, disc.es_ids32, outs, iters), *net)
         if err != 0:
             raise RuntimeError(f"{lib}: CUDA error {err} ({lib_obj.c8_error_string(err).decode()})")
 
@@ -135,6 +141,8 @@ def sweep_case(fns, usage, label, deck, mesh, scale, dtype, reps, buf):
     for tag, (fn, lib_obj) in fns[lib].items():
         outs = results[tag]
         equal = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(outs, ref))
+        # equal as values (a zero's sign aside)
+        same = all(torch.equal(a, b) for a, b in zip(outs, ref))
         diff = {name: float((a.double() - b.double()).abs().max())
                 for name, a, b in zip(("R", "J", "xi"), outs[:3], ref[:3])}
         limits = None
@@ -153,7 +161,7 @@ def sweep_case(fns, usage, label, deck, mesh, scale, dtype, reps, buf):
         # the kernel's name: implicit_team_kernel, or an earlier tree's
         # implicit_assembly_kernel
         rec["builds"][tag] = dict(
-            equal_to_G1=equal, max_abs_diff=diff, within_limits=limits,
+            equal_to_G1=equal, torch_equal_to_G1=same, max_abs_diff=diff, within_limits=limits,
             cold_ms=cs.device_ms(one, reps, "implicit_", flush=lambda: buf.sum()),
             warm_ms=cs.device_ms(one, reps, "implicit_"),
             ptxas=usage[lib][tag].get(f"{dn} {bm.name}"))
@@ -167,8 +175,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--lanes", type=int, nargs="*", default=list(LANES))
     ap.add_argument("--cases", nargs="*", help="labels of chip_smoke.py's implicit cases "
-                                               "(default: every one of the three libraries)")
-    ap.add_argument("--alt", help="another csrc/ directory whose three sources build beside these")
+                                               "(default: every one of the four libraries)")
+    ap.add_argument("--alt", help="another csrc/ directory whose sources build beside these")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

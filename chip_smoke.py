@@ -24,14 +24,16 @@ Phases, in order; any failure exits non-zero without the result lines:
     hyper_J2_plane_strain and hypo_hill_plane_strain (mixed u/p), the
     finite-deformation cases with x != x_prev (every implicit library
     launches the team kernel, c8::implicit_team_kernel; the records of
-    implicit_assembly.cu, implicit_eig.cu and implicit_barlat.cu carry the
-    instance's ptxas registers and spill bytes and a bound that also
-    counts the operations this run's data needs, implicit_cost.FLOPS at
-    PEAK_FLOPS, with the time at the card's rate without FMA beside it);
+    the four implicit libraries carry the instance's ptxas registers,
+    stack frame and spill bytes and a bound that also counts the
+    operations this run's data needs, implicit_cost.FLOPS at PEAK_FLOPS,
+    with the time at the card's rate without FMA beside it);
     the eigensolver libraries (implicit_eig.cu, implicit_barlat.cu) at cube
     n=32 small_hosford, hypo_hosford and hypo_barlat (eig_deck); the
     hybrid's library (implicit_hybrid.cu) at notch2D h=0.004
-    hybrid_hyper_J2_plane_stress (hybrid_deck), with the
+    hybrid_hyper_J2_plane_stress (hybrid_deck), and at notch2D h=0.032
+    with a network at the kernel's cap (HYBRID_CAP_NET: its layers in the
+    per-thread slab of shared memory); the eigensolver twins with the
     elements whose principal stresses nearly coincide counted and each
     element's J held to its conditioning (EIG_J_EPS); the EBE and both
     ELL kernels held once more
@@ -1570,6 +1572,7 @@ def check_implicit(label, prob, scale, results, ctx=None):
         implicit_assembly,
     )
     from calibr8_tpu_torch.implicit_cost import FLOPS, ptxas_usage, team_flops
+    from calibr8_tpu_torch.implicit_cost import HYBRID_NET as HYBRID_NET_COUNTED
     from calibr8_tpu_torch.mechanics.global_residual import elem_kinematics
     from calibr8_tpu_torch.models.batched import implicit_newton
 
@@ -1630,13 +1633,20 @@ def check_implicit(label, prob, scale, results, ctx=None):
     lib = IMPLICIT_LIB.get(bm.name, ("implicit_assembly",))[0]
     team = {}
     if bm.name in FLOPS:
-        # implicit_assembly.cu, implicit_eig.cu and implicit_barlat.cu: the
-        # operations of c8::implicit_element (implicit_cost.FLOPS, counted
-        # on the host) that this run's data needs: A + B per local Newton
-        # update and, for the line search, T per trial up to the accepted
-        # one (the plain local Newton's count on the same inputs); at
-        # PEAK_FLOPS, and, as a figure beside the bound, at the card's rate
-        # without FMA
+        # the four libraries of kernel 1b: the operations of
+        # c8::implicit_element (implicit_cost.FLOPS, counted on the host)
+        # that this run's data needs: A + B per local Newton update and, for
+        # the line search, T per trial up to the accepted one (the plain
+        # local Newton's count on the same inputs); at PEAK_FLOPS, and, as a
+        # figure beside the bound, at the card's rate without FMA.  The
+        # hybrid's row holds for the network it was counted at only.
+        if bm.name == "hybrid_hyper_J2_plane_stress":
+            m = prob.model
+            net = {"activation function": m.nn.activation, "topology": list(m.nn.topology),
+                   "input scale": m.nn_input_scale, "output scale": m.nn_output_scale}
+            if net != HYBRID_NET_COUNTED:
+                raise RuntimeError(f"implicit_cost.FLOPS counts the hybrid at "
+                                   f"{HYBRID_NET_COUNTED}, this deck's network is {net}")
         trials = 0
         if eig:
             gu = elem_kinematics(spec, el["x_eT"], el["gN_T"])
@@ -1797,6 +1807,44 @@ def phase_implicit(meshes, results):
                                          results)
             del prob, J_T
             torch.cuda.empty_cache()
+    return ok and check_hybrid_cap()
+
+
+# the hybrid's network at the kernel's cap (c8_hybrid.cuh: NN_MAX_HIDDEN
+# hidden layers of NN_MAX_WIDTH units), whose layers the kernel keeps in a
+# per-thread slab of shared memory; no deck runs such a network, so phase 2
+# holds the kernel against its plain version on one, on notch2D h=0.032
+HYBRID_CAP_NET = {"activation function": "tanh", "topology": [1, 16, 16, 16, 16, 1],
+                  "input scale": 1.0, "output scale": 10.0}
+
+
+def check_hybrid_cap() -> bool:
+    """implicit_hybrid.cu at HYBRID_CAP_NET against its plain version
+    (compare_implicit's limits), float32 and float64; logged, not in the
+    kernels line."""
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.fem.fused_assembly import fused_assembly_plain, implicit_assembly
+    from calibr8_tpu_torch.problem import Problem
+
+    deck = hybrid_deck(0.032)
+    deck["residuals"]["local residual"]["embedded model"] = copy.deepcopy(HYBRID_CAP_NET)
+    ok = True
+    for dtype in (torch.float32, torch.float64):
+        prob = Problem(load_deck(deck_in(deck, dtype)), device=DEVICE, dtype=dtype)
+        disc, bm = prob.disc, prob.assembler.bmodel
+        x, x_prev, xi_prev = implicit_inputs(prob, 0.01)
+        iters = torch.zeros(disc.n_elem, dtype=torch.int32, device=disc.device)
+        iters_p = torch.zeros_like(iters)
+        out_k = implicit_assembly(disc, bm, x, xi_prev, prob.params0, newton_iters=iters,
+                                  x_prev=x_prev)
+        out_p = fused_assembly_plain(disc, bm, x, xi_prev, prob.params0, x_prev=x_prev,
+                                     newton_iters=iters_p)
+        good, cmp = compare_implicit(disc.spec, bm, out_k, out_p, iters, iters_p,
+                                     elem_inputs(prob, x, x_prev, xi_prev))
+        log(json.dumps(dict(kernel="implicit_hybrid",
+                            case=f"notch2D h=0.032 hybrid, network {HYBRID_CAP_NET['topology']}",
+                            dtype=str(dtype).split(".")[1], **cmp, ok=good)))
+        ok &= good
     return ok
 
 
@@ -2928,11 +2976,11 @@ def main(argv) -> int:
             r = r["forward"]
         entry = dict(name=name, route="cuda", source=src, replaces=repl,
                      launches=counts[name], **figures(r))
-        if name in ("implicit_assembly", "implicit_eig", "implicit_barlat"):
+        if name in ("implicit_assembly", "implicit_eig", "implicit_barlat", "implicit_hybrid"):
             # each instance's launches, figures, bounds by bytes and by
             # operations, and ptxas report (3D at cube n=32, the plane twins
-            # at notch2D h=0.004) beside hyper_J2's (implicit_assembly) or
-            # small_hosford's (implicit_eig)
+            # and the hybrid at notch2D h=0.004) beside hyper_J2's
+            # (implicit_assembly) or small_hosford's (implicit_eig)
             for key, h in results.items():
                 if key[0] == name and key[2] == "float64":
                     model = key[1].split()[-1]

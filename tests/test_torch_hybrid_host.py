@@ -3,7 +3,8 @@ the port's plain versions on this CPU, float64, without FMA contraction
 (-ffp-contract=off, as the kernel libraries are built with -fmad=false):
 
  - csrc/c8_hybrid.cuh's network through the hybrid's sigma_yield on
-   Dual<double, 1> (NN(in_scale alpha) on duals, NN(0) on plain T), for
+   Dual<double, 1> (NN(in_scale alpha) on duals, NN(0) on plain T, the
+   element's constant ElemConst), for
    every activation and two topologies, at weights and alpha made with
    numpy from a seed, against BatchedHybridHyperJ2PlaneStress._sigma_yield
    under torch.func.jvp: value and tangent to 1e-13 of their max;
@@ -78,8 +79,10 @@ int main(int argc, char** argv) {
     for (int e = 0; e < E; ++e) {
       c8::Dual<double, 1> al(a[e]);
       al.d[0] = da[e];
-      const c8::Dual<double, 1> y =
-          c8::HybridHyperJ2PlaneStress<double>::sigma_yield(al, params.data() + e * stride);
+      typedef c8::HybridHyperJ2PlaneStress<double> M;
+      M::ElemConst kc;
+      M::elem_const(params.data() + e * stride, kc);
+      const c8::Dual<double, 1> y = M::sigma_yield(al, params.data() + e * stride, kc);
       out[2 * e] = y.v;
       out[2 * e + 1] = y.d[0];
     }

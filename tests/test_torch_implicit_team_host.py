@@ -410,13 +410,14 @@ TEAM_CASES = (("hypo_barlat", CUBE2, 0.02), ("hypo_barlat", CUBE2, 0.1),
               ("hyper_J2_plane_stress", NOTCH, 0.01))
 
 
-def build_harness(d, builds, timeout=300):
-    """Build HARNESS into directory d once per entry of `builds` ({mode:
-    extra g++ flags}), all side by side; returns run(mode, name, header,
-    scalars, params, *arrays), the mode's output bytes on those inputs."""
+def build_harness(d, builds, timeout=300, source=HARNESS):
+    """Build `source` (HARNESS, or a variant of it) into directory d once per
+    entry of `builds` ({mode: extra g++ flags}), all side by side; returns
+    run(mode, name, header, scalars, params, *arrays), the mode's output
+    bytes on those inputs."""
     gxx = shutil.which("g++")
     src = d / "harness.cpp"
-    src.write_text(HARNESS)
+    src.write_text(source)
     procs = {mode: subprocess.Popen(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-pthread", *defs, "-I", str(CSRC),
          str(src), "-o", str(d / mode)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
@@ -549,8 +550,9 @@ def plain_trials(prob, x, x_prev, xi_prev):
 
 def test_operation_counts_match_flops_table(harness):
     # this file counts TEAM_MODELS; tests/test_torch_implicit_eig_host.py
-    # the Hosford twins, the table's other rows
-    assert sorted(FLOPS) == sorted(TEAM_MODELS + HOSFORD_MODELS)
+    # the Hosford twins and tests/test_torch_implicit_hybrid_host.py the
+    # hybrid, the table's other rows
+    assert sorted(FLOPS) == sorted(TEAM_MODELS + HOSFORD_MODELS + ("hybrid_hyper_J2_plane_stress",))
     for name in TEAM_MODELS:
         prob, x, x_prev, xi_prev = twin_state(name, NOTCH if "plane" in name else CUBE2, 0.02)
         E = prob.disc.n_elem
