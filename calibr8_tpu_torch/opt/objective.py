@@ -1,16 +1,16 @@
 """Optimization objectives over material parameters.
 
 The counterpart of calibr8_tpu's opt/objective.py (reference
-objective.{hpp,cpp}, adjoint_objective.cpp; the value-only FEMU objective
-comes with the optimizer that finite-differences it): the
+objective.{hpp,cpp}, adjoint_objective.cpp, femu_objective.cpp): the
 active (calibrated) parameters are selected per element set from the
 `inverse: materials:` sublist and scaled to canonical coordinates
 (opt/transforms.py), with the chain-rule factor applied to gradients.
 The adjoint objective re-solves the primal when the parameters change
 and runs the backward adjoint sweep for its gradient; value and gradient
-share the cached trajectory.  Canonical coordinates and gradients are
-numpy arrays (the optimizer's view); parameters live on the Problem's
-device.
+share the cached trajectory.  The FEMU objective is value only: the
+optimizer (opt/drivers.py) finite-differences it.  Canonical coordinates
+and gradients are numpy arrays (the optimizer's view); parameters live on
+the Problem's device.
 """
 
 from __future__ import annotations
@@ -60,6 +60,26 @@ class ActiveParams:
     @property
     def names(self):
         return [e[2] for e in self.entries]
+
+    # bounds-mode views (valid when every scale is a (lo, hi) pair)
+    @property
+    def lower(self) -> np.ndarray:
+        return np.asarray([s[0] for s in self.scales])
+
+    @property
+    def upper(self) -> np.ndarray:
+        return np.asarray([s[1] for s in self.scales])
+
+    def span(self) -> np.ndarray:
+        return 0.5 * (self.upper - self.lower)
+
+    def mean(self) -> np.ndarray:
+        return 0.5 * (self.upper + self.lower)
+
+    def opt_bounds(self):
+        """The optimizer's box, one (lo, hi) per entry: (-1, 1) for bounds
+        scaling, unbounded (None, None) for value and log scaling."""
+        return [tr.opt_bounds(s) for s in self.scales]
 
     def to_canonical(self, p) -> np.ndarray:
         return tr.transform_parameters(np.asarray(p), self.scales, False)
@@ -128,6 +148,9 @@ class AdjointObjective:
         g_active = self.active.extract_grad(grad_all)
         return self.active.grad_to_canonical(g_active, self.active.extract(params_all))
 
+    def value_and_gradient(self, x_canonical):
+        return self.value(x_canonical), self.gradient(x_canonical)
+
 
 class MultiProblemObjective:
     """Sum of objectives over independent problems that share one
@@ -145,6 +168,27 @@ class MultiProblemObjective:
         for o in self.objectives:
             g = g + np.asarray(o.gradient(x_canonical))
         return g
+
+    def value_and_gradient(self, x_canonical):
+        J, g = 0.0, np.zeros(self.active.n)
+        for o in self.objectives:
+            Ji, gi = o.value_and_gradient(x_canonical)
+            J += Ji
+            g = g + np.asarray(gi)
+        return J, g
+
+
+class FEMUObjective:
+    """Value only: the optimizer finite-differences its gradient
+    (femu_objective.cpp:13-37)."""
+
+    def __init__(self, problem, active: ActiveParams):
+        self.problem = problem
+        self.active = active
+
+    def value(self, x_canonical) -> float:
+        p_active = self.active.from_canonical(np.asarray(x_canonical))
+        return self.problem.primal.run(self.active.insert(self.problem.params0, p_active)).J
 
 
 def fd_gradient_check(value_fn, grad, x, direction=None, num_steps=13, seed=0):

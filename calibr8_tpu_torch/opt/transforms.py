@@ -50,6 +50,13 @@ def first_deriv(p, scale):
     return 0.5 * (float(scale[1]) - float(scale[0]))
 
 
+def opt_bounds(scale):
+    """The optimizer's box per scaling (parameter_transforms.py:63-70)."""
+    if scale is None or is_log(scale):
+        return (None, None)
+    return (-1.0, 1.0)
+
+
 def transform_parameters(values, scales, from_canonical_flag):
     fn = from_canonical if from_canonical_flag else to_canonical
     return np.asarray([fn(v, s) for v, s in zip(values, scales)])

@@ -169,6 +169,10 @@ class Problem:
         qcfg = dict(spec.qoi)
         qtype = qcfg.pop("type", None)
         self.qoi = create_qoi(qtype, self.disc, qcfg) if qtype else None
+        # the reaction QoIs evaluate the element residual of the assembler's
+        # twin (calibr8_tpu problem.py:218-225)
+        if self.qoi is not None and hasattr(self.qoi, "assembler"):
+            self.qoi.assembler = self.assembler
 
         tf = spec.disc.get("time file")
         if tf:

@@ -9,8 +9,11 @@ with geom = (grad_N (npe, d), detJ, h), accumulated over elements at
 the ip-set-0 points.  `evaluate` maps it over the elements with
 torch.func.vmap; `partials` maps torch.func.grad of it over the
 elements for the adjoint: dJ/dx, dJ/dxi, dJ/dp (the QoI<FADT> seeded
-evaluations, qoi.cpp:226-233).  Step-dependent data arrives through
-`aux`, prepared per step by setup_step.
+evaluations, qoi.cpp:226-233).  A QoI that is no sum of element terms
+(the calibration QoI's load mismatch, qoi/calibration.py) overrides
+`evaluate` and `partials` with its global form.  Step-dependent data
+arrives through `aux`, prepared per step by setup_step; the primal calls
+`postprocess` and `after_step` after each step's `evaluate`.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ class QoI:
         self.config = config or {}
 
     def setup_step(self, step: int, t: float, dt: float, total_time: float):
-        """The aux data of this step (none for the QoIs ported so far)."""
+        """The aux data of this step (measured data, weights...); none by
+        default."""
         return ()
 
     def elem_value(self, x_e, x_prev_e, xi, geom, params, aux):
@@ -61,3 +65,10 @@ class QoI:
         dJdx = torch.zeros_like(x).index_add_(0, disc.edofs.reshape(-1), dx_e.reshape(-1))
         dJdp = torch.zeros_like(params_all).index_add_(0, disc.es_ids, dp_e)
         return dJdx, dxi, dJdp
+
+    def postprocess(self, J: float, step: int) -> float:
+        return J
+
+    def after_step(self, x, x_prev, xi, params_all, step: int) -> None:
+        """Host-side per-step hook (e.g. writing the load.dat history,
+        calibration.cpp:351-366); no-op by default."""

@@ -88,6 +88,8 @@ class Primal:
             if self.qoi is not None:
                 aux = self.qoi.setup_step(step, t, tg.dt(step), tg.total_time)
                 J_step = float(self.qoi.evaluate(x_new, x, xi_new, params_all, aux))
+                J_step = self.qoi.postprocess(J_step, step)
+                self.qoi.after_step(x_new, x, xi_new, params_all, step)
             traj.x.append(x_new)
             traj.xi.append(xi_new)
             traj.path.append(path_new)

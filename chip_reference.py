@@ -12,6 +12,7 @@ full-width decks: the values chip_smoke.py holds the port to.
     python3 chip_reference.py fd cuda|cpu [test] [twin] [test1] [twin1]
     JAX_PLATFORMS=cpu python3 chip_reference.py dist
     python3 chip_reference.py dist_tol [bench] [hyper]
+    JAX_PLATFORMS=cpu python3 chip_reference.py femu [DIR]
 
 The first form runs each named deck (the first three by default; the
 eigensolver decks chip_smoke.eig_deck("hypo_barlat", 32) and
@@ -77,7 +78,18 @@ absolute 1e-9 .. 1e-11, through the single-device path and DistPrimal at
 tolerance's reach, converged they agree (chip_smoke.py's
 converged_deck).
 
-The first, second, fourth and sixth need JAX and the calibr8_tpu package; chip_smoke.py itself
+The eighth runs calibr8_tpu's FEMU pipeline on chip_smoke.py's phase
+5h(a) decks (chip_smoke.femu_full_decks: notch2D h=0.032 refined 3 times,
+small_hill_plane_stress, GMRES with the geometric multigrid): the forward
+solve at the truth, whose `reaction mismatch` QoI writes load.dat, then
+attach_synthetic, then its calibration QoI's AdjointObjective (the CLI's
+default LinearCfg with the problem's multigrid) at the start point, and
+prints one JSON line (also written to DIR/femu_ref.json when DIR is
+given) with J and the canonical dJ/d(Y, D), chip_smoke.py's J_REF_FEMU /
+G_REF_FEMU, the synthetic loads, Newton counts and wall times; a failed
+solve is recorded in the line (`error`).
+
+The first, second, fourth, sixth and eighth need JAX and the calibr8_tpu package; chip_smoke.py itself
 imports neither.  Full-width decks are for a machine with the memory and the
 minutes for them (the primal of one such deck took 400-800 s on an 8-core
 CPU).
@@ -444,6 +456,58 @@ def dist_tolerance_table(names, chip_smoke) -> None:
                     seconds=time.perf_counter() - t0)), flush=True)
 
 
+def femu_reference(chip_smoke, out_dir=None) -> None:
+    import tempfile
+
+    import jax
+    import numpy as np
+
+    from calibr8_tpu.deck import load_deck
+    from calibr8_tpu.io.synthetic import attach_synthetic
+    from calibr8_tpu.opt.objective import ActiveParams, AdjointObjective
+    from calibr8_tpu.problem import Problem, build_mesh
+    from calibr8_tpu.solve.adjoint import Adjoint
+    from calibr8_tpu.solve.linear import LinearCfg
+
+    rec = dict(reference="J_REF_FEMU / G_REF_FEMU", jax=jax.__version__, cpus=os.cpu_count())
+    with tempfile.TemporaryDirectory() as tmp:
+        load_file = os.path.join(tmp, "load.dat")
+        syn_deck, cal_deck = chip_smoke.femu_full_decks(load_file)
+        rec["pull"] = syn_deck["dirichlet bcs"]["expression"]["bc 3"][3]
+        t0 = time.perf_counter()
+        try:
+            mesh = build_mesh(load_deck(copy.deepcopy(syn_deck)))
+            syn = Problem(load_deck(syn_deck), mesh=mesh)
+            traj = syn.solve_primal()
+            rec["synthetic_s"] = time.perf_counter() - t0
+            attach_synthetic(mesh, syn.disc, traj)
+            with open(load_file) as f:
+                rec["loads"] = [float(v) for v in f.read().split()]
+            cal = Problem(load_deck(cal_deck), mesh=mesh)
+            rec.update(n_elem=int(cal.disc.n_elem), n_dofs=int(cal.disc.n_dofs))
+            adj = Adjoint(cal.assembler, cal.qoi, cal.dbcs, LinearCfg(),
+                          mg_factory=cal.mg_factory)
+            active = ActiveParams.from_inverse_spec(chip_smoke.FEMU_FULL_ACTIVE,
+                                                    cal.disc.elem_set_names,
+                                                    cal.model.param_names)
+            obj = AdjointObjective(cal, adj, active)
+            x0 = active.to_canonical(active.extract(np.asarray(cal.params0)))
+            t0 = time.perf_counter()
+            rec["J"] = float(obj.value(x0))
+            rec["primal_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rec["grad"] = [float(v) for v in np.asarray(obj.gradient(x0), dtype=np.float64)]
+            rec.update(names=active.names, adjoint_s=time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 - record the failure in the line
+            rec.update(error=repr(exc), seconds=time.perf_counter() - t0)
+    line = json.dumps(rec)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "femu_ref.json"), "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+
+
 def main(argv) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -478,6 +542,8 @@ def main(argv) -> int:
         adjoint_references(args[2:] or list(ADJOINT_DECKS), chip_smoke, args[1])
     elif args[:1] == ["mg"]:
         mg_references(args[2:] or list(MG_DECKS), chip_smoke, args[1])
+    elif args[:1] == ["femu"]:
+        femu_reference(chip_smoke, args[1] if len(args) > 1 else None)
     else:
         primal_references(args or list(DECKS), chip_smoke)
     return 0

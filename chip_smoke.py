@@ -127,8 +127,25 @@ Phases, in order; any failure exits non-zero without the result lines:
     single-device one, cube n=32, no limit).  (g) the CLI,
     `primal` and `inverse` (the gradient check), in this process on the
     two last models' twin cases (cli_decks), exit code 0 and drop > 6.
+    (h) FEMU recovery (tests/test_calibration_recovery.py's configurations,
+    small_hill_plane_stress at Y 2, S 10, D 2 with unit Hill ratios): a
+    synthetic calibration at full width (phase_femu_full_width: notch2D
+    h=0.032 refined 3 times, 139,008 triangles, GMRES with the geometric
+    multigrid; the forward solve at the truth writes load.dat through the
+    `reaction mismatch` QoI, attach_synthetic; then run_inverse, L-BFGS-B,
+    over Y and D of the `calibration` QoI's AdjointObjective from Y 2.5, D
+    2.8): Y and D within rel 5e-3 of the truth, J and dJ/dp at the start
+    within 1e-6 / 1e-5 of calibr8_tpu's (J_REF_FEMU / G_REF_FEMU, from
+    chip_reference.py femu), every transposed solve at its tolerance, with
+    evaluations, seconds per evaluation (primal and adjoint), Newton and
+    Krylov counts, launches per evaluation and peak memory; the reference
+    configuration (phase_femu_reference: notch2D h=0.15, 4 steps, Y / S / D
+    from 2.6 / 7 / 3) with L-BFGS-B and trust-constr, each to rel 1e-3;
+    and the CLI round trip (phase_femu_cli: `primal` with write synthetic,
+    `perturb`, `inverse` with fields file and an iteration limit,
+    `objective`), exit code 0 at every step.
  6. one JSON line listing every ported kernel (launches: the sum over
-    the runs of phases 4, 4b, 4c and 5b-5f; the probe's from its own run;
+    the runs of phases 4, 4b, 4c, 5b-5f and 5h; the probe's from its own run;
     implicit_assembly's entry also each instance's launches and figures,
     kernels.model_launches), the card's name and power limit, and the
     `ok` line last.
@@ -2186,6 +2203,336 @@ def phase_cli():
     return ok
 
 
+# -- phase 5h: FEMU recovery (tests/test_calibration_recovery.py) ------------
+
+FEMU_TRUTH = {"E": 1000.0, "nu": 0.25, "Y": 2.0, "S": 10.0, "D": 2.0,
+              "R00": 1.0, "R11": 1.0, "R22": 1.0, "R01": 1.0}
+# the load plane: the y reaction at the nodes on y = 1
+FEMU_PLANE = {"coordinate index": 1, "coordinate value": 1.0, "coordinate tolerance": 1e-6,
+              "reaction force component": 1}
+FEMU_FULL_ACTIVE = {"materials": {"body": {"Y": [1.0, 3.0], "D": [1.0, 4.0]}}}
+FEMU_REF_ACTIVE = {"materials": {"body": {"Y": [1.0, 3.0], "S": [5.0, 15.0], "D": [1.0, 4.0]}}}
+# calibr8_tpu's J and canonical dJ/d(Y, D) at the full-width start point,
+# each package on its own synthetic data (chip_reference.py femu: JAX 0.9.0
+# on the card machine's CPU)
+J_REF_FEMU = 0.9603403541073696
+G_REF_FEMU = {"body/Y": 2.4011173272817823, "body/D": 1.2145664536077236}
+
+
+def femu_deck(mesh, materials, qoi, num_steps, pull) -> dict:
+    """tests/test_calibration_recovery.py _base_deck: small_hill_plane_stress
+    under 'mechanics_plane_stress', pulled at y = 1 by `pull` t."""
+    return {
+        "discretization": {"builtin mesh": dict(mesh), "num steps": num_steps, "step size": 1.0},
+        "residuals": {
+            "global residual": {"type": "mechanics_plane_stress", "nonlinear max iters": 30,
+                                "nonlinear absolute tol": 1e-8, "nonlinear relative tol": 1e-8},
+            "local residual": {"type": "small_hill_plane_stress", **LR_TOL,
+                               "materials": {"body": dict(materials)}},
+        },
+        "dirichlet bcs": bcs_2d(pull),
+        "quantity of interest": qoi,
+    }
+
+
+def femu_decks(load_file, mesh, start, num_steps=2, pull=0.005):
+    """(synthetic deck, calibration deck): the forward solve at FEMU_TRUTH
+    whose `reaction mismatch` QoI writes load_file, and the calibration
+    QoI (balance factor 4.22, weights 3.98e7) reading it, from `start`."""
+    syn = femu_deck(mesh, FEMU_TRUTH, {"type": "reaction mismatch", **FEMU_PLANE,
+                                       "load out file": load_file}, num_steps, pull)
+    cal = femu_deck(mesh, {**FEMU_TRUTH, **start},
+                    {"type": "calibration", "balance factor": 4.22, **FEMU_PLANE,
+                     "displacement weights": [3.98e7, 3.98e7], "load input file": load_file},
+                    num_steps, pull)
+    return syn, cal
+
+
+def femu_full_decks(load_file):
+    """Phase 5h(a): femu_decks on mg_notch_deck()'s mesh and solver (notch2D
+    h=0.032 refined 3 times, GMRES with the recursive geometric
+    multigrid), from Y 2.5, D 2.8 (test_femu_recovery_fast)."""
+    syn, cal = femu_decks(load_file, {"type": "notch2D", "h": 0.032, "refinements": 3},
+                          {"Y": 2.5, "D": 2.8})
+    for d in (syn, cal):
+        d["linear algebra"] = {"method": "gmres", "preconditioner": "multigrid"}
+    return syn, cal
+
+
+class FemuRecorder:
+    """An AdjointObjective with each evaluation's record: the primal's and
+    the sweep's seconds, each load step's Newton and Krylov iterations, and
+    each transposed solve's Krylov iterations and relative residual."""
+
+    def __init__(self, obj, adj):
+        self.obj = obj
+        self.adj = adj
+        self.evals = []
+
+    def value_and_gradient(self, x):
+        x = np.asarray(x, dtype=np.float64)
+        cached = self.obj._cache_x is not None and np.array_equal(self.obj._cache_x, x)
+        t0 = time.perf_counter()
+        J = self.obj.value(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g = self.obj.gradient(x)
+        torch.cuda.synchronize()
+        info = [] if cached else self.obj._cache_traj.newton_info
+        self.evals.append(dict(
+            J=J, primal_s=t1 - t0, adjoint_s=time.perf_counter() - t1, cached_primal=cached,
+            newton=[i["iterations"] - 1 for i in info],
+            krylov=[int(sum(i["krylov_iters"])) for i in info],
+            adjoint_krylov=[s["krylov_iters"] for s in self.adj.step_info],
+            adjoint_relres=[s["relres"] for s in self.adj.step_info]))
+        return J, g
+
+    def gradient(self, x):
+        return self.value_and_gradient(x)[1]
+
+    def summary(self) -> dict:
+        ev = self.evals
+        n = len(ev)
+        primal = [e["primal_s"] for e in ev if not e["cached_primal"]]
+        return dict(evaluations=n, primal_solves=len(primal),
+                    primal_s_per_eval=sum(primal) / max(len(primal), 1),
+                    adjoint_s_per_eval=sum(e["adjoint_s"] for e in ev) / n,
+                    newton_iterations=sum(sum(e["newton"]) for e in ev),
+                    krylov_iterations=sum(sum(e["krylov"]) for e in ev),
+                    adjoint_krylov_iterations=sum(sum(e["adjoint_krylov"]) for e in ev),
+                    max_adjoint_relres=max(r for e in ev for r in e["adjoint_relres"]))
+
+
+def femu_recovered(res) -> dict:
+    """{parameter: (recovered value, relative error against FEMU_TRUTH)}."""
+    out = {}
+    for name, v in zip(res.names, res.params):
+        p = name.split("/")[-1]
+        out[p] = (float(v), abs(float(v) - FEMU_TRUTH[p]) / FEMU_TRUTH[p])
+    return out
+
+
+def phase_femu_full_width(mesh, j_ref, g_ref):
+    """Phase 5h(a): a synthetic calibration at full width, through the
+    port's entry points: the forward solve at FEMU_TRUTH (its `reaction
+    mismatch` QoI writes load.dat), attach_synthetic, then run_inverse
+    (scipy L-BFGS-B, gtol 1e-12, at most 60 iterations) over Y in [1, 3]
+    and D in [1, 4] of the calibration QoI's AdjointObjective from Y 2.5,
+    D 2.8, on `mesh` (mg_notch_deck's, 139,008 triangles) with the
+    multigrid transposed solves.  ok needs Y and D within rel 5e-3 of the
+    truth, J and the canonical dJ/dp at the start within rel 1e-6 and 1e-5
+    (max-norm) of calibr8_tpu's j_ref / g_ref ({name: dJ/dp}), every
+    transposed solve at its tolerance, and implicit_assembly, ell_spmv,
+    ell_spmv_T and ell_spmv_level launched.  A diverged forward solve inside the
+    optimizer is run_inverse's penalty (counted as failed_forward_solves).
+    Returns (ok, launch counts)."""
+    import tempfile
+
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.io.synthetic import attach_synthetic
+    from calibr8_tpu_torch.opt.drivers import run_inverse
+    from calibr8_tpu_torch.opt.objective import ActiveParams, AdjointObjective
+    from calibr8_tpu_torch.problem import Problem
+    from calibr8_tpu_torch.solve.adjoint import Adjoint
+    from calibr8_tpu_torch.solve.linear import LinearCfg
+
+    mesh = copy.copy(mesh)  # the refinement chain, fields of its own
+    mesh.fields = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        syn_deck, cal_deck = femu_full_decks(os.path.join(tmp, "load.dat"))
+        t0 = time.perf_counter()
+        syn = Problem(load_deck(syn_deck), mesh=mesh, device=DEVICE, dtype=torch.float64)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        traj = syn.solve_primal()
+        torch.cuda.synchronize()
+        synthetic_s = time.perf_counter() - t0
+        attach_synthetic(mesh, syn.disc, traj)
+        syn_steps = mg_solve_records(traj)
+        syn_counts = launch_counts()
+        cal = Problem(load_deck(cal_deck), mesh=mesh, device=DEVICE, dtype=torch.float64)
+        adj = Adjoint(cal.assembler, cal.qoi, cal.dbcs, LinearCfg(), mg_factory=cal.mg_factory)
+        active = ActiveParams.from_inverse_spec(FEMU_FULL_ACTIVE, cal.disc.elem_set_names,
+                                                cal.model.param_names)
+        obj = FemuRecorder(AdjointObjective(cal, adj, active), adj)
+        x0 = active.to_canonical(active.extract(cal.params0))
+        t0 = time.perf_counter()
+        J0, g0 = obj.value_and_gradient(x0)
+        res = run_inverse(obj, active, x0=x0, max_iters=60, gtol=1e-12)
+        torch.cuda.synchronize()
+        calibration_s = time.perf_counter() - t0
+        counts = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec_params = femu_recovered(res)
+    summ = obj.summary()
+    n = summ["evaluations"]
+    ref = np.asarray([g_ref[k] for k in res.names])
+    j_rel = abs(J0 - j_ref) / abs(j_ref)
+    g_rel = float(np.abs(g0 - ref).max() / np.abs(ref).max())
+    rec = dict(femu="notch2D h=0.032 refinements 3 small_hill_plane_stress",
+               n_elem=cal.disc.n_elem, n_dofs=cal.disc.n_dofs, names=res.names,
+               recovered={k: v[0] for k, v in rec_params.items()},
+               rel_err={k: v[1] for k, v in rec_params.items()}, limit=5e-3,
+               J0=J0, grad0=[float(v) for v in g0], J_ref=j_ref, grad_ref=ref.tolist(),
+               J0_rel_err=j_rel,
+               grad0_rel_err=g_rel, J=res.J, success=res.success, message=res.message,
+               failed_forward_solves=res.n_failed, setup_s=setup_s, synthetic_s=synthetic_s,
+               synthetic_steps=syn_steps, calibration_s=calibration_s, **summ,
+               adjoint_tol=adj.linear_cfg.tol,
+               launches_per_eval={k: (v - syn_counts.get(k, 0)) / n for k, v in counts.items()},
+               launches=counts, synthetic_launches=syn_counts,
+               peak_mem_gb=peak_gb)
+    log(json.dumps(rec))
+    log(json.dumps(dict(femu_evals=obj.evals)))
+    ok = (all(v[1] < 5e-3 for v in rec_params.values())
+          and j_rel <= 1e-6 and g_rel <= 1e-5
+          and summ["max_adjoint_relres"] <= adj.linear_cfg.tol
+          and all(counts.get(k, 0) > 0
+                  for k in ("implicit_assembly", "ell_spmv", "ell_spmv_T", "ell_spmv_level")))
+    if not ok:
+        log("FAIL femu full width: see the record above")
+    return ok, counts
+
+
+def phase_femu_reference():
+    """Phase 5h(b): calibr8_tpu's slow test_femu_parameter_recovery through
+    the port: notch2D h=0.15, 4 load steps at pull 0.003 t, Y / S / D from
+    2.6 / 7 / 3 within FEMU_REF_ACTIVE, gtol 1e-10, with scipy L-BFGS-B (at
+    most 150 iterations) and trust-constr (500), each from its own
+    objective on the same synthetic data.  ok needs Y, S and D within rel
+    1e-3 of the truth for both.  Returns (ok, launch counts)."""
+    import tempfile
+
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.io.synthetic import attach_synthetic
+    from calibr8_tpu_torch.opt.drivers import run_inverse
+    from calibr8_tpu_torch.opt.objective import ActiveParams, AdjointObjective
+    from calibr8_tpu_torch.problem import Problem
+    from calibr8_tpu_torch.solve.adjoint import Adjoint
+    from calibr8_tpu_torch.solve.linear import LinearCfg
+
+    ok = True
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        syn_deck, cal_deck = femu_decks(os.path.join(tmp, "load.dat"),
+                                        {"type": "notch2D", "h": 0.15},
+                                        {"Y": 2.6, "S": 7.0, "D": 3.0}, num_steps=4, pull=0.003)
+        t0 = time.perf_counter()
+        syn = Problem(load_deck(syn_deck), device=DEVICE, dtype=torch.float64)
+        attach_synthetic(syn.mesh, syn.disc, syn.solve_primal())
+        torch.cuda.synchronize()
+        rec = dict(femu_reference="notch2D h=0.15 4 steps small_hill_plane_stress",
+                   n_elem=syn.disc.n_elem, n_dofs=syn.disc.n_dofs,
+                   synthetic_s=time.perf_counter() - t0, limit=1e-3)
+        for method, max_iters in (("L-BFGS-B", 150), ("trust-constr", 500)):
+            cal = Problem(load_deck(copy.deepcopy(cal_deck)), mesh=syn.mesh, device=DEVICE,
+                          dtype=torch.float64)
+            adj = Adjoint(cal.assembler, cal.qoi, cal.dbcs, LinearCfg())
+            active = ActiveParams.from_inverse_spec(FEMU_REF_ACTIVE, cal.disc.elem_set_names,
+                                                    cal.model.param_names)
+            obj = AdjointObjective(cal, adj, active)
+            x0 = active.to_canonical(active.extract(cal.params0))
+            t0 = time.perf_counter()
+            res = run_inverse(obj, active, x0=x0, method=method, max_iters=max_iters, gtol=1e-10,
+                              out_file=os.path.join(tmp, "calibrated_params.txt"))
+            torch.cuda.synchronize()
+            got = femu_recovered(res)
+            rec[method] = dict(recovered={k: v[0] for k, v in got.items()},
+                               rel_err={k: v[1] for k, v in got.items()}, J=res.J,
+                               evaluations=res.n_evals, failed_forward_solves=res.n_failed,
+                               success=res.success, message=res.message,
+                               seconds=time.perf_counter() - t0)
+            ok &= all(v[1] < 1e-3 for v in got.values())
+    counts = launch_counts()
+    rec["launches"] = counts
+    log(json.dumps(rec))
+    ok &= counts.get("implicit_assembly", 0) > 0
+    if not ok:
+        log("FAIL femu reference configuration: see the record above")
+    return ok, counts
+
+
+def phase_femu_cli():
+    """Phase 5h(c): the FEMU path through the CLI, in this process, on the
+    card (the CLI's default device), in a temporary directory: `primal`
+    (write synthetic; the reaction mismatch QoI writes load.dat) at the
+    truth on test_femu_recovery_fast's deck (notch2D h=0.25, 2 steps),
+    `perturb` at sigma 0, `inverse` (fields file, iteration limit 60,
+    gradient tolerance 1e-12) from Y 2.5, D 2.8, and `objective`.  ok needs
+    exit code 0 at every step, calibrated_params.txt within rel 5e-3 of the
+    truth, and gradient.dat within 1e-10 of max|g| of the AdjointObjective's
+    gradient at the deck's parameters (the card's index_add_ sums are not
+    repeatable bit for bit).  Returns (ok, launch counts)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.cli.main import main as cli_main
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.io.synthetic import load_fields
+    from calibr8_tpu_torch.opt.objective import ActiveParams, AdjointObjective
+    from calibr8_tpu_torch.problem import Problem
+    from calibr8_tpu_torch.solve.adjoint import Adjoint
+    from calibr8_tpu_torch.solve.linear import LinearCfg
+
+    cwd = os.getcwd()
+    rec, ok = dict(femu_cli="notch2D h=0.25 2 steps small_hill_plane_stress"), True
+    kernels.reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            fwd, cal = femu_decks("load.dat", {"type": "notch2D", "h": 0.25},
+                                  {"Y": 2.5, "D": 2.8})
+            fwd["problem"] = {"name": "fwd", "write synthetic": True}
+            cal["discretization"]["fields file"] = "meas.npz"
+            cal["inverse"] = {**FEMU_FULL_ACTIVE, "iteration limit": 60,
+                              "gradient tolerance": 1e-12}
+            for name, deck in (("fwd", fwd), ("cal", cal)):
+                with open(f"{name}.yaml", "w") as f:
+                    f.write(json.dumps({name: deck}))
+            for argv in (["primal", "fwd.yaml"],
+                         ["perturb", "fwd_synthetic.npz", "--sigma", "0", "--out", "meas.npz"],
+                         ["inverse", "cal.yaml"], ["objective", "cal.yaml"]):
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = cli_main(argv)
+                torch.cuda.synchronize()
+                rec[argv[0]] = dict(rc=rc, seconds=time.perf_counter() - t0,
+                                    last_line=out.getvalue().strip().splitlines()[-1])
+                ok &= rc == 0
+            with open("calibrated_params.txt") as f:
+                got = {k: float(v) for k, v in (ln.split(": ") for ln in f.read().splitlines())}
+            g = np.loadtxt("gradient.dat", ndmin=1)
+            counts = launch_counts()
+            prob = Problem(load_deck(copy.deepcopy(cal)), device=DEVICE, dtype=torch.float64)
+            load_fields(prob.mesh, "meas.npz")
+            active = ActiveParams.from_inverse_spec(cal["inverse"], prob.disc.elem_set_names,
+                                                    prob.model.param_names)
+            obj = AdjointObjective(prob, Adjoint(prob.assembler, prob.qoi, prob.dbcs, LinearCfg()),
+                                   active)
+            g_ref = obj.gradient(active.to_canonical(active.extract(prob.params0)))
+        finally:
+            os.chdir(cwd)
+    rel = {k: abs(v - FEMU_TRUTH[k]) / FEMU_TRUTH[k] for k, v in got.items()}
+    g_err = float(np.abs(g - g_ref).max() / np.abs(g_ref).max())
+    rec.update(recovered=got, rel_err=rel, limit=5e-3, gradient=g.tolist(),
+               gradient_ref=g_ref.tolist(), gradient_err=g_err, gradient_limit=1e-10,
+               launches=counts)
+    log(json.dumps(rec))
+    ok &= (sorted(got) == ["D", "Y"] and all(r < 5e-3 for r in rel.values()) and g_err <= 1e-10
+           and counts.get("implicit_assembly", 0) > 0)
+    if not ok:
+        log("FAIL femu cli: see the record above")
+    return ok, counts
+
+
 def check_level_apply(label, A_T, nbr_T, tr_T, m, results):
     """Kernel 3c (the multigrid level apply, LevelEllOperator) against its
     plain version on one level's assembled matrix A_T (K, m, m, n), in
@@ -2949,6 +3296,17 @@ def main(argv) -> int:
     log(f"phase cli: {'ok' if ok else 'FAILED'} ({time.perf_counter() - t_start:.0f} s)")
     if not ok:
         return 1
+    for label, run in (
+        ("full width", lambda: phase_femu_full_width(meshes["mg_notch"], J_REF_FEMU, G_REF_FEMU)),
+        ("reference configuration", phase_femu_reference),
+        ("cli round trip", phase_femu_cli),
+    ):
+        ok, c = run()
+        log(f"phase femu, {label}: {'ok' if ok else 'FAILED'} "
+            f"({time.perf_counter() - t_start:.0f} s)")
+        if not ok:
+            return 1
+        counts = add_counts(counts, c)
 
     line = []
     timed = {"fused_assembly": ("fused_assembly", "float64"),
