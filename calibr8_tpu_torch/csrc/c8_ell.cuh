@@ -9,15 +9,16 @@
 // the p block x[N * D + c] (NDPN == D: node-interleaved).
 //
 // G lanes share node n: lane g of them takes the slots g, g + G, g + 2G,
-// ... < K, U = 4 at a time.  For each batch it loads the neighbour ids
-// first, then their x values and A blocks, then does the multiply-adds,
-// so the loads of U slots are in flight together and not one slot's
-// after another's.  A pad slot (id N) is predicated, not skipped: its x
-// values are 0 and its A block is not read (taken as 0), which is the
-// plain version's zero row for x whatever A_T holds there.  Each lane
-// adds its slots in slot order; the kernel then sums the G partials
-// with a fixed xor tree (ell_spmv.cu), so y is the same bit for bit from
-// run to run.
+// ... < K, U at a time (ell_batch: 4 for ndpn <= 4, 2 for the 6 x 6
+// blocks of the 3D rigid-mode levels).  For each batch it loads the
+// neighbour ids first, then their x values and A blocks, then does the
+// multiply-adds, so the loads of U slots are in flight together and not
+// one slot's after another's.  A pad slot (id N) is predicated, not
+// skipped: its x values are 0 and its A block is not read (taken as 0),
+// which is the plain version's zero row for x whatever A_T holds there.
+// Each lane adds its slots in slot order; the kernel then sums the G
+// partials with a fixed xor tree (ell_spmv.cu), so y is the same bit for
+// bit from run to run.
 //
 // Everything here is __host__ __device__ (C8_HD), so a host C++ compiler
 // builds it for checking without a card (tests/test_torch_ell_host.py,
@@ -135,12 +136,22 @@ C8_HD void ell_slot_batch(int N, int K, int n, int s0, int G, const T* __restric
       for (int j = 0; j < NDPN; ++j) acc[i] = acc[i] + a[u][i * NDPN + j] * xv[u][j];
 }
 
+// Slots a lane takes per batch, U: U * NDPN^2 words of A loaded together.
+// 4 up to NDPN = 4 (64 words); the 6 x 6 blocks of the 3D rigid-mode AMG
+// levels take 2 (72 words): at 4, the 144 doubles of A alone would pass
+// the 255-register cap.  At 2, ptxas for sm_90a gives the (6, 6) instance
+// 80 registers in float64 and 126-128 in float32, no spill (PERF.md).
+template <int NDPN>
+C8_HD constexpr int ell_batch() {
+  return NDPN <= 4 ? 4 : 2;
+}
+
 // Lane g's partial sums of node n over the slots g, g + G, ... < K.
 template <typename T, int D, int NDPN>
 C8_HD void ell_lane_partial(int N, int K, int n, int g, int G, const T* __restrict__ A_T,
                             const int* __restrict__ nbr_T, const T* __restrict__ x,
                             T acc[NDPN]) {
-  constexpr int U = 4;
+  constexpr int U = ell_batch<NDPN>();
 #pragma unroll
   for (int i = 0; i < NDPN; ++i) acc[i] = T(0);
   int s = g;

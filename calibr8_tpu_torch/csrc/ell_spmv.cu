@@ -39,9 +39,12 @@
 // a level vector is node-interleaved, x[n * m + j], which is this
 // kernel's layout with NDPN == D == m, so the level instances are
 // (m, m) = (1, 1) for the pressure chain and the fine pressure block and
-// (2, 2), (3, 3) for the displacement chains.  The levels are small
-// (125 to 35,937 nodes on the cube MG deck), so the small ones are bound
-// by the launch, not by bytes.
+// (2, 2), (3, 3) for the displacement chains.  The aggregation AMG's
+// levels (solve/amg.py) carry d(d+1)/2 rigid-body modes per aggregate:
+// (3, 3) in 2D and (6, 6) in 3D, whose lanes take 2 slots per batch
+// (c8::ell_batch) so that the 72 words of A in flight stay in registers.
+// The levels are small (125 to 35,937 nodes on the cube MG deck), so the
+// small ones are bound by the launch, not by bytes.
 //
 // And it is kernel 3c per part, the local apply of the domain-decomposed
 // solver (parallel/dist.py:445-471 there, calibr8_tpu_torch/parallel/
@@ -116,6 +119,7 @@ int launch(int dim, int ndpn, int N, int K, const void* A_T, const void* nbr_T, 
   if (dim == 3 && ndpn == 3) return launch_g<T, 3, 3>(G, N, K, A_T, nbr_T, x, y, s);
   if (dim == 3 && ndpn == 4) return launch_g<T, 3, 4>(G, N, K, A_T, nbr_T, x, y, s);
   if (dim == 4 && ndpn == 4) return launch_g<T, 4, 4>(G, N, K, A_T, nbr_T, x, y, s);
+  if (dim == 6 && ndpn == 6) return launch_g<T, 6, 6>(G, N, K, A_T, nbr_T, x, y, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -125,8 +129,9 @@ extern "C" {
 
 // device: the CUDA ordinal of the tensors (this library's runtime keeps
 // its own current device); dtype: 0 float32, 1 float64; ndpn = dim
-// (displacement-only, a multigrid level's m = dim = ndpn, 1 to 3, or the
-// per-part apply's m = dim = ndpn, 2 to 4) or dim + 1 (mixed u/p).  The
+// (displacement-only, a multigrid level's m = dim = ndpn: 1 to 3 on the
+// geometric levels, 1, 3 or 6 on the aggregation AMG's; or the per-part
+// apply's m = dim = ndpn, 2 to 4) or dim + 1 (mixed u/p).  The
 // lanes per node are c8::ell_lanes'.  Returns the cudaError_t of the
 // launch (0 on success).
 int c8_ell_spmv(int device, int dtype, int dim, int ndpn, int N, int K, const void* A_T,

@@ -25,7 +25,10 @@ it), with 256 MB written before every call ("dirty": the same, while the
 L2 writes the other data back) and back to back ("warm").  The old
 transposed kernel's time is its own kernel's; its zero fill of y is a
 separate launch, not counted.  `rule_G` is the fixed G whose y equals the
-rule build's bit for bit.  Prints one JSON line per kernel, shape and
+rule build's bit for bit; `old_equal` whether the earlier build's y does.
+The aggregation AMG's levels of the bench deck's mesh (the (6, 6) and (1,
+1) instances) are among the shapes; an earlier file without the (6, 6)
+instance fails there with cudaErrorInvalidValue, recorded as `error`.  Prints one JSON line per kernel, shape and
 dtype, then the card's name and power limit, then {"ok": ...}: whether
 every build was within its limit.  Needs a CUDA device.
 """
@@ -113,7 +116,24 @@ def shapes():
     out += [("3c per part", "cube n=32 ndpn 4, 8 parts", 4, 4, pc, None),
             ("3c per part", "notch2D h=0.004 ndpn 3, 8 parts", 3, 3, pn, None),
             ("3c per part", "notch2D h=0.004 ndpn 2, 8 parts", 2, 2, pn, None)]
+    for label, nbr_T in _amg_levels(cube_m):
+        out += [("3c", f"{label} u", 6, 6, nbr_T, None), ("3c", f"{label} p", 1, 1, nbr_T, None)]
     return out
+
+
+def _amg_levels(mesh):
+    """(label, nbr_T) of the aggregation AMG's coarse levels on the bench
+    deck's mesh (solve/amg.py; chip_smoke.py's phase 4d holds the (6, 6)
+    instance on levels 1 and 2)."""
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.problem import Problem
+    from calibr8_tpu_torch.profile_primal import bench_deck
+
+    deck = bench_deck(32)
+    deck["linear algebra"] = {"method": "gmres", "preconditioner": "amg"}
+    levels = Problem(load_deck(deck), mesh=mesh, device="cpu").mg_factory.levels
+    return [(f"AMG level {i + 1} ({lv.n} nodes)", np.ascontiguousarray(lv.nbr.T))
+            for i, lv in enumerate(levels)]
 
 
 def build(old: dict) -> dict:
@@ -213,7 +233,14 @@ def sweep_shape(fns, direction, kernel, label, dim, ndpn, nbr_np, tr_np, dtype, 
                builds={})
     ok, ys = True, {}
     for tag, (fn, lib, n_maps) in fns.items():
-        call(fn, lib, n_maps)
+        try:
+            call(fn, lib, n_maps)
+        except RuntimeError as exc:
+            if tag != "old":
+                raise
+            # an earlier file without this instance
+            rec["builds"][tag] = dict(error=str(exc))
+            continue
         torch.cuda.synchronize()
         ys[tag] = y.clone()
         err = (y - y_plain).abs().max().item() / scale
@@ -226,6 +253,9 @@ def sweep_shape(fns, direction, kernel, label, dim, ndpn, nbr_np, tr_np, dtype, 
             warm_ms=device_ms(one, reps, name),
         )
     rec["rule_G"] = next((G for G in LANES if torch.equal(ys[f"G{G}"], ys["rule"])), None)
+    if "old" in ys:
+        # the earlier build's y against this one's, bit for bit
+        rec["old_equal"] = torch.equal(ys["old"], ys["rule"])
     rec["ok"] = ok
     return ok, rec
 

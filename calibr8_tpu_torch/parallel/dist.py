@@ -51,7 +51,7 @@ from calibr8_tpu_torch.fem.fused_assembly import assembly_elems
 from calibr8_tpu_torch.mechanics.global_residual import make_elem_residual
 from calibr8_tpu_torch.parallel.partition import build_partition
 from calibr8_tpu_torch.solve.adjoint import AdjointSolveError
-from calibr8_tpu_torch.solve.ellpack import part_ell_spmv
+from calibr8_tpu_torch.solve.ellpack import assemble_ell_T_blocks, part_ell_spmv
 from calibr8_tpu_torch.solve.gmres import gmres_cycle, pcg
 from calibr8_tpu_torch.solve.newton import NewtonCfg, StepSolver
 from calibr8_tpu_torch.utils import timers
@@ -74,12 +74,6 @@ class DistContext:
     CPU; any count may be asked for on one device."""
 
     def __init__(self, prob, n_parts=None, pad_multiple=8):
-        if getattr(prob, "mg_factory", None) is not None:
-            raise NotImplementedError(
-                "a multigrid deck under DistContext needs calibr8_tpu's distributed "
-                "Aggregation AMG (parallel/dist_mg.py's DistAMG over solve/amg.py's "
-                "AMGPrecondFactory), which is not ported yet"
-            )
         self.prob = prob
         disc = prob.disc
         self.disc = disc
@@ -143,6 +137,17 @@ class DistContext:
         ids = np.where(li >= N_loc * K, K * PN, (li % K) * PN + p_ids[..., None] * N_loc + li // K)
         self._ell_ids = dev_t(ids.transpose(2, 3, 0, 1).reshape(-1))
         self._elem_res = make_elem_residual(self.bmodel, disc.spec)
+
+        # the distributed aggregation AMG where the deck asks for multigrid
+        # (parallel/dist_mg.py, calibr8_tpu dist.py:102-115): the problem's
+        # AMG factory, or a fresh one where the deck's is the geometric one
+        self._mg = None
+        if getattr(prob, "mg_factory", None) is not None:
+            from calibr8_tpu_torch.parallel.dist_mg import DistAMG
+            from calibr8_tpu_torch.solve.amg import AMGPrecondFactory
+
+            f = prob.mg_factory
+            self._mg = DistAMG(self, f if isinstance(f, AMGPrecondFactory) else None)
 
     # -- layout converters ------------------------------------------------
     def to_dist(self, x):
@@ -296,11 +301,8 @@ class DistContext:
         ndpn, P * N_loc), one index_add_ into a dummy trailing slot that
         takes the pad elements' entries; once per Krylov solve."""
         part = self.part
-        m, K, PN = self.ndpn, part.K_ell, part.n_parts * part.N_loc
-        V = J_T.reshape(self.npe, m, self.npe, m, -1).permute(1, 3, 0, 2, 4).reshape(m * m, -1)
-        A2 = J_T.new_zeros(m * m, K * PN + 1)
-        A2.index_add_(1, self._ell_ids, V)
-        return A2[:, : K * PN].reshape(m, m, K, PN).permute(2, 0, 1, 3).contiguous()
+        return assemble_ell_T_blocks(J_T, self._ell_ids, part.K_ell, part.n_parts * part.N_loc,
+                                     self.ndpn)
 
     def ell_matvec(self, A_T, Vd):
         """The assembled per-part apply: one halo gather in, kernel 3c per
@@ -319,6 +321,17 @@ class DistContext:
         )
 
     # -- linear solve ------------------------------------------------------
+    def dirichlet_blocks(self, blocks, diag, bc_mask):
+        """Node blocks (P, N_own, ndpn, ndpn) with the Dirichlet rows
+        replaced by diag times the identity's and identity blocks on the
+        padded owned slots (calibr8_tpu dist.py:616-661): what the block
+        preconditioners invert."""
+        eye = torch.eye(self.ndpn, dtype=blocks.dtype, device=blocks.device)
+        rowsel = bc_mask.to(blocks.dtype)[..., None]  # (P, N, ndpn, 1)
+        blocks = blocks * (1.0 - rowsel) + rowsel * eye * diag[..., None]
+        padsel = (~self.own_mask).to(blocks.dtype)[..., None, None]
+        return blocks * (1.0 - padsel) + padsel * eye
+
     def make_precond(self, J_T, diag, bc_mask, transpose=False):
         """calibr8_tpu's block u/p Gauss-Seidel on the parts (dist.py:
         616-661): pivoted solves of the d x d node blocks, Dirichlet rows
@@ -328,12 +341,8 @@ class DistContext:
         blocks = self.node_blocks(J_T)  # (P, N_own, ndpn, ndpn)
         if transpose:
             blocks = blocks.transpose(-1, -2)
-        d, ndpn = self.disc.spec.dim, self.ndpn
-        eye = torch.eye(ndpn, dtype=blocks.dtype, device=blocks.device)
-        rowsel = bc_mask.to(blocks.dtype)[..., None]  # (P, N, ndpn, 1)
-        blocks = blocks * (1.0 - rowsel) + rowsel * eye * diag[..., None]
-        padsel = (~self.own_mask).to(blocks.dtype)[..., None, None]
-        blocks = blocks * (1.0 - padsel) + padsel * eye
+        d = self.disc.spec.dim
+        blocks = self.dirichlet_blocks(blocks, diag, bc_mask)
         Au = blocks[..., :d, :d]
         Au_inv = gauss_solve_pivot(Au, torch.eye(d, dtype=blocks.dtype,
                                                  device=blocks.device).expand(Au.shape))
@@ -364,7 +373,8 @@ class DistContext:
         """Solve J x = b with Dirichlet rows diag * x_row = b_row, every
         vector (P, N_own, ndpn); transpose=True expects J_T's element row
         and column axes already swapped and switches the preconditioner to
-        the transposed forward one.  The operator is every part's ELL
+        the transposed forward one (with a multigrid deck, DistAMG's
+        mirrored cycle of the swapped blocks).  The operator is every part's ELL
         matrix (kernel 3c per part) or, with cfg.operator "ebe", the
         element Jacobians.  Returns (x, relres[, Krylov iterations])."""
         if cfg.operator != "ebe":
@@ -381,7 +391,10 @@ class DistContext:
         def op(v):
             return torch.where(bc_mask, diag * v, apply(v))
 
-        M = self.make_precond(J_T, diag, bc_mask, transpose=transpose)
+        if self._mg is not None:
+            M = self._mg.make(J_T, diag, bc_mask, op, transpose=transpose)
+        else:
+            M = self.make_precond(J_T, diag, bc_mask, transpose=transpose)
         x, relres, ki = _krylov(cfg, op, M, b)
         return (x, relres, ki) if return_iters else (x, relres)
 

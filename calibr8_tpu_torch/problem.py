@@ -90,14 +90,6 @@ class Problem:
         refine_chain = getattr(self.mesh, "refine_chain", None)
         refine_base = getattr(self.mesh, "refine_base", None)
         precond = la.get("preconditioner")
-        if precond == "amg" or (precond == "multigrid" and not refine_chain):
-            # calibr8_tpu runs these on its aggregation AMG
-            raise NotImplementedError(
-                f"preconditioner {precond!r}"
-                + ("" if precond == "amg" else " on a mesh without 'refinements:'")
-                + " needs the aggregation AMG (solve/amg.py's AMGPrecondFactory), which is "
-                "not ported yet; geometric multigrid runs on a refined builtin mesh"
-            )
         self.model = create_local_model(spec.model_name, dim, config=lr)
         self.model.abs_tol = float(lr.get("nonlinear absolute tol", 1e-12))
         self.mech_spec = MechanicsSpec(
@@ -146,15 +138,23 @@ class Problem:
         )
         self.step_solver = StepSolver(self.assembler, newton_cfg)
 
-        # geometric multigrid on the refinement chain (calibr8_tpu
-        # problem.py:187-206); its host setup time is kept for the record
+        # multigrid preconditioning (calibr8_tpu problem.py:180-199):
+        # geometric on a refinement chain, otherwise the aggregation AMG
+        # built from the connectivity alone; 'amg' forces the aggregation
+        # path on a refined mesh too.  The host setup time is kept for the
+        # record
         self.mg_factory = None
         self.mg_setup_s = 0.0
-        if precond == "multigrid":
-            from calibr8_tpu_torch.solve.mg import MGPrecondFactory
-
+        if precond in ("multigrid", "amg"):
             t0 = time.perf_counter()
-            self.mg_factory = MGPrecondFactory(self.disc, refine_chain, refine_base)
+            if precond == "multigrid" and refine_chain:
+                from calibr8_tpu_torch.solve.mg import MGPrecondFactory
+
+                self.mg_factory = MGPrecondFactory(self.disc, refine_chain, refine_base)
+            else:
+                from calibr8_tpu_torch.solve.amg import AMGPrecondFactory
+
+                self.mg_factory = AMGPrecondFactory(self.disc)
             self.mg_setup_s = time.perf_counter() - t0
             self.step_solver.mg_factory = self.mg_factory
 

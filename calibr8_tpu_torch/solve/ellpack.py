@@ -132,19 +132,24 @@ def build_ell_maps(disc) -> dict:
     return cached
 
 
+def assemble_slots(V, ids, K: int, n: int, m: int):
+    """Columns V (m*m, C) added at their slot-major targets ids (C,), s *
+    n + row, the dummy K * n taking pad entries -> A_T (K, m, m, n): one
+    index_add_ along the node-slot axis (PyTorch's segment_sum)."""
+    A2 = V.new_zeros(m * m, K * n + 1)
+    A2.index_add_(1, ids, V)
+    return A2[:, : K * n].reshape(m, m, K, n).permute(2, 0, 1, 3).contiguous()
+
+
 def assemble_ell_T_blocks(JT, ids_T, K: int, n_nodes: int, m: int):
     """Element blocks JT (npe*m, npe*m, E), node-interleaved, -> A_T
-    (K, m, m, n_nodes), with the (a, b, e)-ordered slot ids of
-    ell_maps_from_conn: one index_add_ along the node-slot axis
-    (PyTorch's segment_sum).  calibr8_tpu's assemble_ell_T_blocks
-    (solve/ellpack.py:284)."""
-    E = JT.shape[-1]
+    (K, m, m, n_nodes), with (a, b, e)-ordered slot ids such as
+    ell_maps_from_conn's (the dummy K * n_nodes takes pad entries).
+    calibr8_tpu's assemble_ell_T_blocks (solve/ellpack.py:284)."""
     npe = JT.shape[0] // m
     # (a, i, b, j, e) -> (i, j, a, b, e): column order (a, b, e) of ids_T
-    V = JT.reshape(npe, m, npe, m, E).permute(1, 3, 0, 2, 4).reshape(m * m, -1)
-    A2 = torch.zeros(m * m, K * n_nodes, dtype=JT.dtype, device=JT.device)
-    A2.index_add_(1, ids_T, V)
-    return A2.reshape(m, m, K, n_nodes).permute(2, 0, 1, 3).contiguous()
+    V = JT.reshape(npe, m, npe, m, -1).permute(1, 3, 0, 2, 4).reshape(m * m, -1)
+    return assemble_slots(V, ids_T, K, n_nodes, m)
 
 
 def assemble_ell_T(J_T, disc):

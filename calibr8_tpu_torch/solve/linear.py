@@ -10,7 +10,8 @@ applies the element Jacobians directly (fem/ebe_matvec.py); on the card
 each is a CUDA kernel, on the CPU its plain version.  The transposed
 solves of the adjoint apply A^T of the same assembled matrix (the
 ell_spmv_T kernel), or the EBE kernel on transposed element blocks.
-Given a multigrid factory (solve/mg.py), GMRES is preconditioned with
+Given a multigrid factory (solve/mg.py, or the aggregation AMG of
+solve/amg.py), GMRES is preconditioned with
 its cycle instead of block Gauss-Seidel, built from the (transposed)
 element blocks per solve, or from a state built once per Newton step
 (LinearCfg.precond_reuse "step", mg_make_state).
@@ -184,8 +185,8 @@ def _gmres_setup(cfg, J_T, disc, diag, bc_dofs, transpose, mg=None, mg_state=Non
 
     else:
         raise NotImplementedError(
-            f"preconditioner {cfg.preconditioner!r} is not ported: geometric multigrid "
-            "comes as a factory (solve/mg.py, Problem.mg_factory); aggregation AMG "
-            "(solve/amg.py's AMGPrecondFactory) is not ported yet"
+            f"preconditioner {cfg.preconditioner!r} is not ported: multigrid comes as a "
+            "factory (solve/mg.py's geometric MGPrecondFactory or solve/amg.py's "
+            "AMGPrecondFactory, Problem.mg_factory)"
         )
     return op, M

@@ -13,6 +13,7 @@ full-width decks: the values chip_smoke.py holds the port to.
     JAX_PLATFORMS=cpu python3 chip_reference.py dist
     python3 chip_reference.py dist_tol [bench] [hyper]
     JAX_PLATFORMS=cpu python3 chip_reference.py femu [DIR]
+    JAX_PLATFORMS=cpu python3 chip_reference.py amg DIR [bench] [plane_stress] [bench16]
 
 The first form runs each named deck (the first three by default; the
 eigensolver decks chip_smoke.eig_deck("hypo_barlat", 32) and
@@ -89,7 +90,19 @@ given) with J and the canonical dJ/d(Y, D), chip_smoke.py's J_REF_FEMU /
 G_REF_FEMU, the synthetic loads, Newton counts and wall times; a failed
 solve is recorded in the line (`error`).
 
-The first, second, fourth, sixth and eighth need JAX and the calibr8_tpu package; chip_smoke.py itself
+The ninth is the fourth on chip_smoke.py's aggregation-AMG decks:
+`bench`, dJ/dp of adjoint_deck("amg") (the bench deck, cube n=32, with
+`preconditioner: amg`) and its J; `plane_stress`, J of
+amg_plane_stress_deck() (notch2D h=0.004 with `multigrid` on the
+unrefined mesh); `bench16`, the first at cube n=16, by name only.  The
+lines are written to DIR/mg_ref_amg_<name>.json; chip_smoke.py's
+J_REF_AMG, G_REF_AMG and J_REF_AMG_PLANE_STRESS.  calibr8_tpu's smoothers
+run there on the port's number of power iterations for lmax
+(calibr8_tpu_torch.solve.amg.LMAX_ITERS): with its own 10, GMRES stalls
+on these decks (relres 0.79 and 0.82 on the first solve) and its Newton
+raises.
+
+The first, second, fourth, sixth, eighth and ninth need JAX and the calibr8_tpu package; chip_smoke.py itself
 imports neither.  Full-width decks are for a machine with the memory and the
 minutes for them (the primal of one such deck took 400-800 s on an 8-core
 CPU).
@@ -108,6 +121,10 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 DECKS = ("plane_stress", "hill", "hyper_plane_stress")
 ADJOINT_DECKS = ("bench", "hill", "hyper")
 MG_DECKS = ("cube", "cube_step", "notch", "adjoint")
+AMG_DECKS = ("bench", "plane_stress")
+# the adjoint forms of `mg` / `amg` -> chip_smoke.adjoint_deck's name
+ADJOINT_MG = {"adjoint": "mg", "hybrid_adjoint": "hybrid", "amg_bench": "amg",
+              "amg_bench16": "amg"}
 
 
 def primal_references(names, chip_smoke) -> None:
@@ -258,8 +275,11 @@ def mg_references(names, chip_smoke, out_dir) -> None:
         solves.clear()
         t0 = time.perf_counter()
         rec = dict(reference=name, jax=jax.__version__, cpus=os.cpu_count())
-        if name in ("adjoint", "hybrid_adjoint"):
-            spec = load_deck(chip_smoke.adjoint_deck("mg" if name == "adjoint" else "hybrid"))
+        if name in ADJOINT_MG:
+            deck = chip_smoke.adjoint_deck(ADJOINT_MG[name])
+            if name == "amg_bench16":
+                deck["discretization"]["builtin mesh"]["n"] = 16
+            spec = load_deck(deck)
             prob = Problem(spec)
             adj = Adjoint(prob.assembler, prob.qoi, prob.dbcs, LinearCfg(),
                           mg_factory=prob.mg_factory)
@@ -282,7 +302,8 @@ def mg_references(names, chip_smoke, out_dir) -> None:
             deck = {"cube": lambda: chip_smoke.mg_cube_deck("none"),
                     "cube_step": lambda: chip_smoke.mg_cube_deck("step"),
                     "notch": chip_smoke.mg_notch_deck,
-                    "hypo_notch": chip_smoke.hypo_mg_notch_deck}[name]()
+                    "hypo_notch": chip_smoke.hypo_mg_notch_deck,
+                    "amg_plane_stress": chip_smoke.amg_plane_stress_deck}[name]()
             prob = Problem(load_deck(copy.deepcopy(deck)))
             steps = []
             solve_at_step = prob.step_solver.solve_at_step
@@ -542,6 +563,16 @@ def main(argv) -> int:
         adjoint_references(args[2:] or list(ADJOINT_DECKS), chip_smoke, args[1])
     elif args[:1] == ["mg"]:
         mg_references(args[2:] or list(MG_DECKS), chip_smoke, args[1])
+    elif args[:1] == ["amg"]:
+        import functools
+
+        from calibr8_tpu.solve import amg as jax_amg
+        from calibr8_tpu_torch.solve.amg import LMAX_ITERS
+
+        # the port's power iterations for the smoothers' lmax (calibr8_tpu's
+        # 10 stall GMRES on these decks: ROADMAP.md queue 3)
+        jax_amg._power_lmax = functools.partial(jax_amg._power_lmax, iters=LMAX_ITERS)
+        mg_references(["amg_" + a for a in args[2:] or AMG_DECKS], chip_smoke, args[1])
     elif args[:1] == ["femu"]:
         femu_reference(chip_smoke, args[1] if len(args) > 1 else None)
     else:

@@ -144,8 +144,25 @@ Phases, in order; any failure exits non-zero without the result lines:
     and the CLI round trip (phase_femu_cli: `primal` with write synthetic,
     `perturb`, `inverse` with fields file and an iteration limit,
     `objective`), exit code 0 at every step.
- 6. one JSON line listing every ported kernel (launches: the sum over
-    the runs of phases 4, 4b, 4c, 5b-5f and 5h; the probe's from its own run;
+ 6. the aggregation AMG (phase_amg; after the other adjoint phases, so
+    that the first sweep's warm-up falls outside it): (a) the
+    bench deck with `preconditioner: amg` (amg_bench_deck: cube n=32,
+    mixed u/p, the u chain's levels at m = 6, the p chain at m = 1), J
+    and dJ/dp through AdjointObjective, every forward and transposed
+    solve at its tolerance, J within rel 1e-6 and dJ/dp within 1e-5 of
+    max of calibr8_tpu's AMG run (J_REF_AMG, G_REF_AMG), with the
+    hierarchy's setup, level sizes and widths and the seconds per Krylov
+    iteration; (c) kernel 3c's (6, 6) instance (and (1, 1)) on (a)'s
+    level-1 and level-2 operators at 1e-14 in float64, with the level
+    records' timings, bound and CSR mv; (b) notch2D h=0.004
+    small_hill_plane_stress with `multigrid` on the unrefined mesh
+    (amg_plane_stress_deck), every solve at its tolerance, J within rel
+    1e-6 of J_REF_AMG_PLANE_STRESS; (d) DistAMG at 8 parts on the bench
+    deck converged to 1e-11 against the port's single-device AMG run: x
+    and J within 1e-9, then DistAdjoint's dJ/dp (GMRES at 1e-12 in both)
+    within 1e-8 of max.
+ 7. one JSON line listing every ported kernel (launches: the sum over
+    the runs of phases 4, 4b, 4c, 5b-5f, 5h and 6; the probe's from its own run;
     implicit_assembly's entry also each instance's launches and figures,
     kernels.model_launches), the card's name and power limit, and the
     `ok` line last.
@@ -329,6 +346,23 @@ G_REF_HILL_N32 = {
 J_REF_DIST = 1.8186543048123732e-04
 G_REF_DIST = [[-7.754591196146773e-19, -0.00037479841926580157, 0.0, 0.0, 0.0, 0.0]]
 
+# J and dJ/dp of the bench deck with `preconditioner: amg` (amg_bench_deck,
+# adjoint_deck("amg"), the CLI's default LinearCfg for the adjoint) and J of
+# amg_plane_stress_deck() from calibr8_tpu's aggregation AMG (JAX 0.9.0,
+# float64) on the 8-core CPU of the machine with the card, its smoothers on
+# the port's LMAX_ITERS power iterations (with its own 10 both decks' first
+# GMRES solve stalls, relres 0.79 / 0.82, and its Newton raises):
+# chip_reference.py amg, the two decks as parallel processes.  Every solve
+# reached its tolerance: Krylov iterations per solve, load step 1 | 2,
+#   bench         27 52 | 41 65 (primal 384.9 s); transposed 77 (step 2),
+#                 74 (step 1), relres 8.8e-10, 7.2e-10 (adjoint 254.8 s)
+#   plane stress  21 53 42 38 37 34 36 32 33 33 32 33 | 32 76 74 73 70 63 62
+#                 54 56 58 57 58 (12 + 12 Newton iterations, 498.3 s)
+J_REF_AMG = 1.9696967423158762e-03
+G_REF_AMG = {"body/E": -0.0003581267377678041, "body/nu": -0.0003939393982806668,
+             "body/K": 5.509642610785999e-05, "body/Y": 0.00030303035713161587}
+J_REF_AMG_PLANE_STRESS = 7.079422260392816e-03
+
 J_REF_MG_CUBE = 1.9696969933708677e-03
 J_REF_MG_CUBE_STEP = 1.9696969932754167e-03
 J_REF_MG_NOTCH = 7.077590346518355e-03
@@ -423,6 +457,7 @@ ADJOINT_ACTIVE = {
     "hill": ("E", "nu", "Y", "S", "D", "R00", "R11", "R01"),
     "hyper": ("E", "nu", "K", "Y"),
     "mg": ("E", "nu", "K", "Y"),
+    "amg": ("E", "nu", "K", "Y"),
     "hypo": ("E", "nu", "Y", "S", "D", "R00", "R11", "R01"),
     "hosford": ("E", "nu", "Y", "a", "K", "S", "D"),
     "iso": ("E", "nu"),
@@ -434,14 +469,15 @@ ADJOINT_ACTIVE = {
 def adjoint_deck(name: str) -> dict:
     """The full-width deck `name` (the bench deck, hill_deck(32),
     hyper_deck(32), hypo_deck(32), eig_deck("small_hosford", 32),
-    iso_deck(32), hybrid_mg_deck() or, for "mg", mg_cube_deck()) with an
+    iso_deck(32), hybrid_mg_deck() or, for "mg", mg_cube_deck(), for "amg",
+    amg_bench_deck()) with an
     `inverse` sublist: the parameters of ADJOINT_ACTIVE[name] active over
     [0.8, 1.2] times their values (the network's initial weights for the
     hybrid's nn_<i>)."""
     from calibr8_tpu_torch.profile_primal import bench_deck
 
     deck = {"bench": lambda: bench_deck(32), "hill": lambda: hill_deck(32),
-            "hyper": lambda: hyper_deck(32), "mg": mg_cube_deck,
+            "hyper": lambda: hyper_deck(32), "mg": mg_cube_deck, "amg": amg_bench_deck,
             "hypo": lambda: hypo_deck(32),
             "hosford": lambda: eig_deck("small_hosford", 32),
             "iso": lambda: iso_deck(32), "hybrid": hybrid_mg_deck}[name]()
@@ -692,6 +728,28 @@ def hypo_mg_notch_deck() -> dict:
     lr = deck["residuals"]["local residual"]
     lr["type"] = "hypo_hill_plane_stress"
     lr["materials"] = {"body": dict(HYPO_PS_MAT)}
+    return deck
+
+
+def amg_bench_deck(n: int = 32) -> dict:
+    """The bench deck (cube n tets, small_J2, mixed u/p, 2 load steps) with
+    `preconditioner: amg`: GMRES with the aggregation AMG (solve/amg.py;
+    rigid-mode levels at m = 6, the pressure chain at m = 1) and the
+    default linear settings (1e-6, 200 iterations)."""
+    from calibr8_tpu_torch.profile_primal import bench_deck
+
+    deck = bench_deck(n)
+    deck["linear algebra"] = {"method": "gmres", "preconditioner": "amg"}
+    return deck
+
+
+def amg_plane_stress_deck() -> dict:
+    """plane_stress_deck(0.004) (notch2D h=0.004, 139,877 triangles,
+    small_hill_plane_stress, displacement only, m = 3) with `preconditioner:
+    multigrid` on its unrefined mesh: the aggregation AMG (calibr8_tpu
+    problem.py:189-199), the 1000-iteration cap kept."""
+    deck = plane_stress_deck(0.004)
+    deck["linear algebra"]["preconditioner"] = "multigrid"
     return deck
 
 
@@ -2533,15 +2591,16 @@ def phase_femu_cli():
     return ok, counts
 
 
-def check_level_apply(label, A_T, nbr_T, tr_T, m, results):
+def check_level_apply(label, A_T, nbr_T, tr_T, m, results, limits=LIMITS):
     """Kernel 3c (the multigrid level apply, LevelEllOperator) against its
     plain version on one level's assembled matrix A_T (K, m, m, n), in
     float64 and (the same matrix rounded) float32, forward, with the
     ell_spmv_T kernel's level instance (through the level's transposed
-    slot map tr_T) held the same way; each with its time, bound (the
-    filled slots' blocks, nbr_T and the vectors) and the torch.sparse CSR
-    mv of the same matrix; both directions also give the same y bit for
-    bit in two calls."""
+    slot map tr_T; not where tr_T is None) held the same way; each with
+    its time, bound (the filled slots' blocks, nbr_T and the vectors) and
+    the torch.sparse CSR mv of the same matrix; both directions also give
+    the same y bit for bit in two calls.  `limits`: of max|plain|, by
+    dtype name."""
     from calibr8_tpu_torch.solve.ellpack import (
         ell_spmv_T, ell_spmv_T_plain, level_ell_spmv, level_ell_spmv_plain,
     )
@@ -2551,17 +2610,17 @@ def check_level_apply(label, A_T, nbr_T, tr_T, m, results):
     for dtype in (torch.float64, torch.float32):
         dn = str(dtype).split(".")[1]
         w = 4 if dtype == torch.float32 else 8
-        lim = LIMITS[dn]
+        lim = limits[dn]
         A = A_T.to(dtype).contiguous()
         gen = torch.Generator(device=DEVICE).manual_seed(3)
         v = torch.randn(n * m, generator=gen, device=DEVICE, dtype=dtype)
         rec = dict(kernel="ell_spmv_level", case=label, dtype=dn, m=m, nodes=n, K=K, limit=lim)
-        for direction, fk, fp, kname in (
-            ("forward", lambda: level_ell_spmv(A, nbr_T, v, m),
-             lambda: level_ell_spmv_plain(A, nbr_T, v, m), "ell_spmv_kernel"),
-            ("transposed", lambda: ell_spmv_T(A, nbr_T, tr_T, v, m),
-             lambda: ell_spmv_T_plain(A, nbr_T, v, m), "ell_spmv_T_kernel"),
-        ):
+        directions = [("forward", lambda: level_ell_spmv(A, nbr_T, v, m),
+                       lambda: level_ell_spmv_plain(A, nbr_T, v, m), "ell_spmv_kernel")]
+        if tr_T is not None:
+            directions.append(("transposed", lambda: ell_spmv_T(A, nbr_T, tr_T, v, m),
+                               lambda: ell_spmv_T_plain(A, nbr_T, v, m), "ell_spmv_T_kernel"))
+        for direction, fk, fp, kname in directions:
             yp = fp()
             yk = fk()
             err, aerr = rel_err(yk, yp)
@@ -2583,7 +2642,7 @@ def check_level_apply(label, A_T, nbr_T, tr_T, m, results):
             ok &= good
             rec[direction] = dict(r, ok=good)
         log(json.dumps(rec))
-        if not rec["forward"]["ok"] or not rec["transposed"]["ok"]:
+        if not all(rec[d[0]]["ok"] for d in directions):
             log(f"FAIL ell_spmv_level {label} {dn}")
         results[("ell_spmv_level", label, dn)] = rec
     return ok
@@ -3088,10 +3147,14 @@ def phase_mg_primal(label, deck, mesh, J_ref, needed):
     steps = mg_solve_records(traj)
     relres = [r for s in steps for r in s["relres"]]
     summ = timers.summary()
+    iters = sum(k for st in steps for k in st["krylov_iterations"])
     rec = dict(mg_primal=label, n_elem=prob.disc.n_elem, n_dofs=prob.disc.n_dofs,
                reuse=lin.precond_reuse, tol=lin.tol, max_iters=lin.max_iters, J=traj.J,
                J_ref=J_ref, rel_err=rel, steps=steps, setup_s=setup_s,
                hierarchy_setup_s=prob.mg_setup_s, solve_s=solve_s,
+               s_per_krylov_iteration=krylov_rate(summ, iters),
+               amg_hierarchy=(amg_hierarchy(prob) if hasattr(prob.mg_factory, "level_sizes")
+                              else None),
                phases={k: dict(count=v["count"], total_s=v["total"]) for k, v in summ.items()},
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
     log(json.dumps(rec))
@@ -3166,6 +3229,226 @@ def phase_mg_adjoint(mesh, g_ref):
     if not ok:
         log("FAIL mg adjoint: see the record above")
     return ok, counts
+
+
+# -- phase 6: the aggregation AMG ------------------------------------------
+
+AMG_LIMITS = {"float64": 1e-14, "float32": 1e-5}
+AMG_DIST_LIMIT = 1e-9
+AMG_DIST_GRAD_LIMIT = 1e-8
+
+
+def amg_hierarchy(prob) -> dict:
+    """The aggregation AMG's host setup: seconds, nodes per level (the fine
+    mesh first) and each coarse level's ELL width K."""
+    f = prob.mg_factory
+    return dict(setup_s=prob.mg_setup_s, level_sizes=f.level_sizes,
+                K=[lv.K for lv in f.levels], m=f.m)
+
+
+def krylov_rate(summ, iterations) -> float | None:
+    """Seconds per Krylov iteration of the primal's linear solves, the cycle
+    builds (mg/make) taken out."""
+    if not iterations:
+        return None
+    solve = summ.get("primal/linear_solve", {}).get("total", 0.0)
+    make = summ.get("mg/make", {}).get("total", 0.0)
+    return (solve - make) / iterations
+
+
+def phase_amg_bench(mesh, j_ref, g_ref):
+    """Phase 6(a): the bench deck with `preconditioner: amg` (cube n=32,
+    196,608 tets, small_J2, mixed u/p: the u chain at m = 6, the p chain
+    at m = 1), 2 load steps, through the objective's entry points: J (the
+    primal), then dJ/dp (the adjoint, GMRES with the mirrored AMG cycle at
+    the adjoint's 1e-8), float64.  ok needs every forward and transposed
+    solve at its tolerance, J within rel 1e-6 of calibr8_tpu's j_ref,
+    dJ/dp within 1e-5 of max of g_ref, and fused_assembly, ell_spmv,
+    ell_spmv_T and ell_spmv_level launched.  Returns (ok, launch counts,
+    the problem)."""
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.utils import timers
+
+    t0 = time.perf_counter()
+    prob, adj, obj, x0 = adjoint_objective(adjoint_deck("amg"), mesh=mesh)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    timers.reset()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    J = obj.value(x0)
+    torch.cuda.synchronize()
+    primal_s = time.perf_counter() - t0
+    summ_p = timers.summary()
+    timers.reset()
+    t0 = time.perf_counter()
+    g = obj.gradient(x0)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    counts = launch_counts()
+    summ_a = timers.summary()
+    lin = prob.step_solver.cfg.linear
+    steps = mg_solve_records(obj._cache_traj)
+    relres = [r for st in steps for r in st["relres"]]
+    iters = sum(k for st in steps for k in st["krylov_iterations"])
+    adj_steps = [dict(step=st["step"], relres=st["relres"], krylov_iterations=st["krylov_iters"])
+                 for st in adj.step_info]
+    names = obj.active.names
+    ref = np.asarray([g_ref[k] for k in names])
+    rel_g = float(np.abs(g - ref).max() / np.abs(ref).max())
+    rel_j = abs(J - j_ref) / abs(j_ref)
+    adj_iters = sum(st["krylov_iterations"] for st in adj_steps)
+    krylov_a = summ_a.get("adjoint/krylov", {}).get("total", 0.0)
+    make_a = summ_a.get("mg/make", {}).get("total", 0.0)
+    rec = dict(amg="cube n=32 small_J2 (bench deck), preconditioner amg", n_elem=prob.disc.n_elem,
+               n_dofs=prob.disc.n_dofs, hierarchy=amg_hierarchy(prob), setup_s=setup_s,
+               tol=lin.tol, max_iters=lin.max_iters, J=J, J_ref=j_ref, rel_err=rel_j,
+               J_limit=1e-6, steps=steps, primal_s=primal_s,
+               s_per_krylov_iteration=krylov_rate(summ_p, iters), names=names,
+               grad=[float(v) for v in g], grad_ref=ref.tolist(), grad_rel_err=rel_g,
+               grad_limit=1e-5, adjoint_tol=adj.linear_cfg.tol, adjoint_steps=adj_steps,
+               sweep_s=sweep_s,
+               adjoint_s_per_krylov_iteration=(krylov_a - make_a) / adj_iters if adj_iters else None,
+               phases={k: dict(count=v["count"], total_s=v["total"])
+                       for k, v in {**summ_p, **{f"sweep {k}": v for k, v in summ_a.items()}}.items()},
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, launches=counts)
+    log(json.dumps(rec))
+    ok = (rel_j <= 1e-6 and rel_g <= 1e-5 and bool(np.all(np.isfinite(g)))
+          and all(r <= lin.tol for r in relres)
+          and all(st["relres"] <= adj.linear_cfg.tol for st in adj_steps)
+          and all(counts[k] > 0 for k in ("fused_assembly", "ell_spmv", "ell_spmv_T",
+                                           "ell_spmv_level")))
+    if not ok:
+        log("FAIL amg bench deck: see the record above")
+    return ok, counts, prob
+
+
+def check_amg_levels(prob, results):
+    """Phase 6(c): kernel 3c's (6, 6) instance (and (1, 1), the pressure
+    chain's) against its plain version on the AMG levels that make()
+    builds from the bench deck's assembled Jacobian at a deformed, partly
+    plastic state: level 1 of both chains and level 2 of the u chain, at
+    AMG_LIMITS (float64 1e-14), with check_level_apply's timings, bound and
+    CSR mv.  Returns (ok, the records' labels)."""
+    from calibr8_tpu_torch.solve.ellpack import EllOperator, assemble_ell_T_blocks
+    from calibr8_tpu_torch.solve.mg import fine_u_setup
+
+    disc, f = prob.disc, prob.mg_factory
+    x, xi_prev = representative_state(prob)
+    _, J_T, diag, _, _, _ = prob.assembler.assemble(x, xi_prev, prob.params0)
+    bc_dofs = prob.dbcs.arrays(1.0, 1)[0]
+    fu = fine_u_setup(disc, J_T, diag, bc_dofs, EllOperator(disc, J_T, diag, bc_dofs), f.uslots)
+    A1 = f.level1_u(fu["J_mask"])
+    ps = torch.as_tensor(f.pslots, device=J_T.device)
+    n_u = disc.n_dofs_u
+    mask_p = torch.where(fu["bc_mask"][n_u:], 0.0, 1.0).to(J_T.dtype)
+    m_peT = mask_p[disc.conn].T
+    lv1 = f.levels[0]
+    A1p = assemble_ell_T_blocks(J_T[ps][:, ps] * m_peT[:, None] * m_peT[None, :], lv1.emap_t,
+                                lv1.K, lv1.n, 1)
+    cases = [(f"AMG level 1 u (m={f.m}, {lv1.n} nodes)", A1, lv1.nbr_T, f.m),
+             (f"AMG level 1 p (m=1, {lv1.n} nodes)", A1p, lv1.nbr_T, 1)]
+    if len(f.levels) > 1:
+        lv2 = f.levels[1]
+        cases.append((f"AMG level 2 u (m={f.m}, {lv2.n} nodes)", f._coarse_galerkin(A1, 1, f.m),
+                      lv2.nbr_T, f.m))
+    ok = True
+    for label, A_T, nbr_T, m in cases:
+        ok &= check_level_apply(label, A_T, nbr_T, None, m, results, limits=AMG_LIMITS)
+    del J_T, fu
+    torch.cuda.empty_cache()
+    return ok, [c[0] for c in cases]
+
+
+def phase_amg_dist(mesh):
+    """Phase 6(d): the distributed AMG (parallel/dist_mg.py DistAMG) on the
+    bench deck with `preconditioner: amg`, converged to
+    DIST_NEWTON_ABS_TOL (converged_deck): the single-device primal, then
+    DistPrimal at DIST_PARTS parts, x within AMG_DIST_LIMIT of max|x| and
+    J within rel AMG_DIST_LIMIT of the single-device run's; then the
+    adjoint, single device and DistAdjoint, both at GMRES 1e-12 (3
+    restart cycles more), dJ/dp within AMG_DIST_GRAD_LIMIT of max of the
+    single-device one, every transposed solve at its tolerance.
+    ell_spmv_part, ell_spmv_level and assembly_elems must be launched in
+    the dist runs.  Returns (ok, the dist runs' launch counts)."""
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.parallel.dist import DistAdjoint
+    from calibr8_tpu_torch.problem import Problem
+    from calibr8_tpu_torch.solve.adjoint import Adjoint
+
+    deck = converged_deck(amg_bench_deck())
+    t0 = time.perf_counter()
+    prob = Problem(load_deck(copy.deepcopy(deck)), mesh=mesh, device=DEVICE, dtype=torch.float64)
+    traj = prob.solve_primal()
+    cfg = dataclasses.replace(prob.step_solver.cfg.linear, tol=1e-12, refine_iters=3)
+    adj = Adjoint(prob.assembler, prob.qoi, prob.dbcs, cfg, mg_factory=prob.mg_factory)
+    g_s, _ = adj.sweep(traj, prob.params0, prob.time_grid)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    ok, counts, dprob, ctx, dtraj = phase_dist_primal(
+        "cube n=32 small_J2 (bench deck), preconditioner amg", deck, mesh, DIST_PARTS, None,
+        ["assembly_elems", "ell_spmv_part", "ell_spmv_level"], single=traj.J,
+        single_limit=AMG_DIST_LIMIT)
+    x_s, x_d = traj.x[-1], ctx.from_dist(dtraj["x"][-1])
+    x_err = float((x_d - x_s).abs().max() / x_s.abs().max())
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    dadj = DistAdjoint(ctx, linear_cfg=cfg)
+    g_d, _ = dadj.sweep(dtraj, dprob.params0, dprob.time_grid)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_counts = launch_counts()
+    g_s, g_d = g_s.double().cpu().numpy(), g_d.double().cpu().numpy()
+    g_err = float(np.abs(g_d - g_s).max() / np.abs(g_s).max())
+    good = (ok and x_err <= AMG_DIST_LIMIT and g_err <= AMG_DIST_GRAD_LIMIT
+            and all(st["relres"] <= cfg.tol for st in dadj.step_info + adj.step_info)
+            and sweep_counts["ell_spmv_part"] > 0 and sweep_counts["ell_spmv_level"] > 0)
+    log(json.dumps(dict(amg_dist="cube n=32 small_J2 (bench deck), preconditioner amg",
+                        parts=DIST_PARTS, newton_abs_tol=DIST_NEWTON_ABS_TOL,
+                        x_rel_err=x_err, limit=AMG_DIST_LIMIT, J_single_device=traj.J,
+                        single_device_s=single_s, adjoint_tol=cfg.tol,
+                        single_device_adjoint_steps=adj.step_info,
+                        dist_adjoint_steps=dadj.step_info, grad_single_device=g_s.tolist(),
+                        grad_dist=g_d.tolist(), grad_rel_err=g_err,
+                        grad_limit=AMG_DIST_GRAD_LIMIT, sweep_s=sweep_s,
+                        launches=sweep_counts, ok=good)))
+    if not good:
+        log("FAIL amg dist: see the records above")
+    return good, add_counts(counts, sweep_counts)
+
+
+def phase_amg(meshes, results):
+    """Phase 6, the aggregation AMG (solve/amg.py, parallel/dist_mg.py):
+    (a) the bench deck with `preconditioner: amg`, primal and adjoint,
+    against calibr8_tpu's AMG run (J_REF_AMG, G_REF_AMG); (b) notch2D
+    h=0.004 small_hill_plane_stress with `multigrid` on its unrefined mesh
+    (amg_plane_stress_deck), against J_REF_AMG_PLANE_STRESS; (c) kernel
+    3c's (6, 6) instance on (a)'s levels; (d) DistAMG at 8 parts against
+    the single-device AMG run.  Returns (ok, launch counts of (a), (b) and
+    (d), the labels of (c)'s records)."""
+    ok, counts, prob = phase_amg_bench(meshes["cube32"], J_REF_AMG, G_REF_AMG)
+    log(f"phase amg (a), bench deck: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        return False, counts, []
+    good, labels = check_amg_levels(prob, results)
+    log(f"phase amg (c), (6, 6) instance: {'ok' if good else 'FAILED'}")
+    del prob
+    torch.cuda.empty_cache()
+    if not good:
+        return False, counts, labels
+    good, c = phase_mg_primal("notch2D h=0.004 small_hill_plane_stress, preconditioner "
+                              "multigrid without refinements (AMG)", amg_plane_stress_deck(),
+                              meshes["notch004"], J_REF_AMG_PLANE_STRESS,
+                              ["implicit_assembly", "ell_spmv", "ell_spmv_level"])
+    log(f"phase amg (b), plane stress: {'ok' if good else 'FAILED'}")
+    counts = add_counts(counts, c)
+    if not good:
+        return False, counts, labels
+    good, c = phase_amg_dist(meshes["cube32"])
+    log(f"phase amg (d), DistAMG: {'ok' if good else 'FAILED'}")
+    return good, add_counts(counts, c), labels
 
 
 def main(argv) -> int:
@@ -3307,6 +3590,11 @@ def main(argv) -> int:
         if not ok:
             return 1
         counts = add_counts(counts, c)
+    ok, c, amg_levels = phase_amg(meshes, results)
+    log(f"phase amg: {'ok' if ok else 'FAILED'} ({time.perf_counter() - t_start:.0f} s)")
+    if not ok:
+        return 1
+    counts = add_counts(counts, c)
 
     line = []
     timed = {"fused_assembly": ("fused_assembly", "float64"),
@@ -3357,6 +3645,10 @@ def main(argv) -> int:
                 if key[0] == "assembly_elems" and key[1:] != timed[name][1:] and \
                         key[2] == "float64":
                     entry[key[1]] = figures(h)
+        if name == "ell_spmv_level":
+            # the aggregation AMG's levels, the (6, 6) instance among them
+            for case in amg_levels:
+                entry[case] = figures(results[("ell_spmv_level", case, "float64")]["forward"])
         if name == "ell_spmv_part":
             # ndpn 3 and 2 beside the 3D mixed (4, 4) instance's
             for case in ("notch2D h=0.004 small_J2", "notch2D h=0.004 small_hill_plane_stress"):

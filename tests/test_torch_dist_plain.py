@@ -8,22 +8,25 @@ what it refuses, on the CPU (float64):
    parts (2D mixed u/p) and hyper_J2 on cube n=2 at 4 parts (3D, x_prev);
  - 3c per part: part_ell_spmv's plain version on the parts' joint node
    space equals level_ell_spmv_plain on each part's own local matrix;
- - a multigrid deck under DistContext raises NotImplementedError naming
-   the unported Aggregation AMG, and n_parts defaults to 1 on the CPU.
+ - a multigrid deck under DistContext builds the distributed aggregation
+   AMG (parallel/dist_mg.py's DistAMG, a fresh AMGPrecondFactory where the
+   deck's is the geometric one), and n_parts defaults to 1 on the CPU.
 
 States made with numpy from a seed."""
 
 import copy
 
 import numpy as np
-import pytest
 import torch
 
 from calibr8_tpu_torch.deck import load_deck
 from calibr8_tpu_torch.fem.fused_assembly import assembly_elems, fused_assembly_plain
 from calibr8_tpu_torch.parallel.dist import DistContext
+from calibr8_tpu_torch.parallel.dist_mg import DistAMG
 from calibr8_tpu_torch.problem import Problem
+from calibr8_tpu_torch.solve.amg import AMGPrecondFactory
 from calibr8_tpu_torch.solve.ellpack import level_ell_spmv_plain, part_ell_spmv
+from calibr8_tpu_torch.solve.mg import MGPrecondFactory
 from tests.decks import BCS_2D, BCS_3D, CUBE, HYPER_MAT, J2_MAT, make_deck
 from tests.test_torch_hyper_assembly import hyper_state, hyper_xi_prev
 
@@ -68,13 +71,18 @@ def test_plain_element_entry_and_part_apply():
 
 
 def test_dist_refuses_multigrid_and_defaults_to_one_part():
+    """A multigrid deck under DistContext builds DistAMG (the name is from
+    when it raised for want of it); n_parts defaults to 1 on the CPU."""
     deck = make_deck({"type": "notch2D", "h": 0.3, "refinements": 1}, "small_J2", J2_MAT,
                      BCS_2D(0.001), 1)
     deck["linear algebra"] = {"preconditioner": "multigrid", "method": "gmres"}
     prob = Problem(load_deck(deck), device="cpu")
-    with pytest.raises(NotImplementedError, match="Aggregation AMG.*parallel/dist_mg.py"):
-        DistContext(prob)
+    assert isinstance(prob.mg_factory, MGPrecondFactory)
+    # the geometric factory's deck gets a fresh aggregation hierarchy
+    ctx = DistContext(prob, n_parts=2)
+    assert isinstance(ctx._mg, DistAMG) and isinstance(ctx._mg.factory, AMGPrecondFactory)
     deck = make_deck({"type": "notch2D", "h": 0.3}, "small_J2", J2_MAT, BCS_2D(0.001), 1)
     ctx = DistContext(Problem(load_deck(deck), device="cpu"))
+    assert ctx._mg is None
     assert ctx.part.n_parts == 1
     assert ctx.zeros().shape == (1, ctx.part.N_own, 3)

@@ -4,10 +4,13 @@ emulated, each lane's c8::ell_lane_partial over the slots g, g + G, ...
 < K, then the kernel's fixed xor tree (at each step, for off = G/2, ...,
 1, lane g adds lane g ^ off's partial), then lane 0's sums written.
 
- - all six instances (D, NDPN) = (1, 1), (2, 2), (2, 3), (3, 3), (3, 4),
-   (4, 4), each at G = 1, 2, 4, 8, on the ELL maps of cube n=2 tets
+ - all seven instances (D, NDPN) = (1, 1), (2, 2), (2, 3), (3, 3), (3, 4),
+   (4, 4), (6, 6), each at G = 1, 2, 4, 8, on the ELL maps of cube n=2 tets
    (K = 15: pad slots, and K not a multiple of G) and notch2D h=0.3
-   (K = 8), against ell_spmv_plain (u block, then p block) and
+   (K = 8), and the (6, 6) instance of the 3D rigid-mode AMG levels (2
+   slots a batch, c8::ell_batch) on the level-1 and level-2 patterns of
+   the aggregation AMG of cube n=8 (solve/amg.py), against ell_spmv_plain
+   (u block, then p block) and
    level_ell_spmv_plain (node-interleaved) at 1e-14 of max|plain| in
    float64; A_T holds random values in the pad slots too, which the plain
    version's zero row of x cancels and the kernel must not read;
@@ -25,10 +28,14 @@ import numpy as np
 import pytest
 import torch
 
+from calibr8_tpu_torch.deck import load_deck
 from calibr8_tpu_torch.mesh import generators
+from calibr8_tpu_torch.problem import Problem
+from calibr8_tpu_torch.solve.amg import AMGPrecondFactory
 from calibr8_tpu_torch.solve.ellpack import (
     ell_maps_from_conn, ell_spmv_plain, level_ell_spmv_plain,
 )
+from tests.decks import BCS_3D, J2_MAT, make_deck
 
 CSRC = Path(__file__).resolve().parents[1] / "calibr8_tpu_torch" / "csrc"
 
@@ -87,6 +94,7 @@ int main(int argc, char** argv) {
     else if (D == 3 && P == 3) y = spmv<3, 3>(N, K, G, A.data(), nbr.data(), x.data());
     else if (D == 3 && P == 4) y = spmv<3, 4>(N, K, G, A.data(), nbr.data(), x.data());
     else if (D == 4 && P == 4) y = spmv<4, 4>(N, K, G, A.data(), nbr.data(), x.data());
+    else if (D == 6 && P == 6) y = spmv<6, 6>(N, K, G, A.data(), nbr.data(), x.data());
     else exit(3);
     fwrite(y.data(), sizeof(double), y.size(), o);
   }
@@ -119,10 +127,28 @@ def harness(tmp_path_factory):
     return run
 
 
-# (mesh, its ELL instances (D, NDPN))
+def mesh_pattern(mesh):
+    """(N, K, nbr_T) of a mesh's node-block ELL maps."""
+    maps = ell_maps_from_conn(mesh.conn, mesh.n_nodes)
+    return mesh.n_nodes, maps["K"], np.ascontiguousarray(maps["nbr"].T)
+
+
+def amg_patterns():
+    """(N, K, nbr_T) of the aggregation AMG's levels 1 and 2 on cube n=8
+    (coarse_cutoff 20, so that there are two)."""
+    deck = make_deck({"type": "cube", "n": 8}, "small_J2", J2_MAT, BCS_3D(0.001), 1)
+    disc = Problem(load_deck(deck), device="cpu").disc
+    levels = AMGPrecondFactory(disc, coarse_cutoff=20).levels
+    return [(lv.n, lv.K, np.ascontiguousarray(lv.nbr.T)) for lv in levels[:2]]
+
+
+# (pattern(s), the ELL instances (D, NDPN) run on them)
 MESHES = {
-    "cube n=2": (lambda: generators.cube(2), ((3, 3), (3, 4), (1, 1), (4, 4))),
-    "notch2D h=0.3": (lambda: generators.notch2d(0.3), ((2, 2), (2, 3), (1, 1))),
+    "cube n=2": (lambda: [mesh_pattern(generators.cube(2))], ((3, 3), (3, 4), (1, 1), (4, 4))),
+    "notch2D h=0.3": (lambda: [mesh_pattern(generators.notch2d(0.3))], ((2, 2), (2, 3), (1, 1))),
+    # after the others, so that their seeded inputs stay as they were
+    "cube n=2, rigid modes": (lambda: [mesh_pattern(generators.cube(2))], ((6, 6),)),
+    "cube n=8 AMG levels 1, 2": (amg_patterns, ((6, 6),)),
 }
 LANES = (1, 2, 4, 8)
 
@@ -130,19 +156,19 @@ LANES = (1, 2, 4, 8)
 def test_lane_partials_and_xor_tree_match_plain(harness):
     rng = np.random.default_rng(0)
     cases, arrays = [], []
-    for name, (make, instances) in MESHES.items():
-        mesh = make()
-        maps = ell_maps_from_conn(mesh.conn, mesh.n_nodes)
-        N, K = mesh.n_nodes, maps["K"]
-        nbr_T = np.ascontiguousarray(maps["nbr"].T)
-        assert (nbr_T == N).any(), "no pad slots"
+    patterns = [(name, pat, instances) for name, (make, instances) in MESHES.items()
+                for pat in make()]
+    # pad slots in every pattern but the last, the small level 2
+    assert all((nbr_T == N).any() for _, (N, K, nbr_T), _ in patterns[:-1]), "no pad slots"
+    for name, (N, K, nbr_T), instances in patterns:
         for D, P in instances:
             A_T = rng.standard_normal((K, P, P, N))
             x = rng.standard_normal(N * P)
             for G in LANES:
                 cases.append((name, D, P, G, A_T, nbr_T, x))
                 arrays += [np.asarray([D, P, N, K, G], np.int32), A_T, nbr_T.astype(np.int32), x]
-    assert {(D, P) for _, D, P, *_ in cases} == {(1, 1), (2, 2), (2, 3), (3, 3), (3, 4), (4, 4)}
+    assert {(D, P) for _, D, P, *_ in cases} == {(1, 1), (2, 2), (2, 3), (3, 3), (3, 4), (4, 4),
+                                                  (6, 6)}
     assert any(nbr.shape[0] % G for *_, G, _, nbr, _ in cases)
     out = np.frombuffer(harness([np.asarray([len(cases)], np.int32)] + arrays), np.float64)
     at = 0
@@ -188,13 +214,19 @@ DECKS = {
     "notch2D MG level 2 (3c)": ((4467, 8, 2, 8), 8),
     "cube n=32, 8 parts (3c per part)": ((45952, 15, 4, 8), 2),
     "notch2D h=0.004, 8 parts (3c per part)": ((74496, 8, 3, 8), 2),
+    "bench deck AMG level 1 u (3c, (6, 6))": ((1331, 25, 6, 8), 8),
+    "bench deck AMG level 1 u (3c, (6, 6)), float32": ((1331, 25, 6, 4), 8),
+    "bench deck AMG level 2 u (3c, (6, 6))": ((59, 22, 6, 8), 8),
+    "bench deck AMG level 1 p (3c)": ((1331, 25, 1, 8), 8),
+    "notch2D h=0.004 AMG level 1 (3c, (3, 3))": ((8106, 9, 3, 8), 8),
+    "notch2D h=0.004 AMG level 2 (3c, (3, 3))": ((1032, 9, 3, 8), 8),
 }
 
 
 def test_launch_rule(harness):
     grid = [(N, K, P, w) for N in (1, 27, 125, 4913, 32768, 32769, 65536, 65537, 131072,
                                    131073, 262144, 262145, 10 ** 6)
-            for K in (1, 2, 3, 5, 8, 9, 15, 21) for P in (1, 2, 3, 4) for w in (4, 8)]
+            for K in (1, 2, 3, 5, 8, 9, 15, 21) for P in (1, 2, 3, 4, 6) for w in (4, 8)]
     quads = grid + [q for q, _ in DECKS.values()]
     buf = harness([np.asarray([0, len(quads)], np.int32), np.asarray(quads, np.int32)])
     got = dict(zip(quads, np.frombuffer(buf, np.int32).tolist()))

@@ -1,7 +1,7 @@
 """The multigrid level apply (kernel 3c's plain version, LevelEllOperator)
 against calibr8_tpu's LevelEllOperator, whose CPU branch is the einsum of
 solve/ellpack.py:408, at node-block widths m = 1, 2, 3; the wrapper's CPU
-path; and the multigrid decks the port still refuses.  float64, inputs
+path; and the multigrid decks that route to the aggregation AMG.  float64, inputs
 from numpy seeds."""
 
 import copy
@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from calibr8_tpu.deck import load_deck as jax_load_deck
+from calibr8_tpu.problem import Problem as JaxProblem
+from calibr8_tpu.solve.amg import AMGPrecondFactory as JaxAMGPrecondFactory
 from calibr8_tpu.solve.ellpack import LevelEllOperator as JaxLevelEllOperator
 from calibr8_tpu.solve.ellpack import ell_maps_from_conn as jax_ell_maps
 from calibr8_tpu_torch import kernels
@@ -18,6 +21,7 @@ from calibr8_tpu_torch.deck import load_deck
 from calibr8_tpu_torch.mesh import generators
 from calibr8_tpu_torch.mesh.refine import uniform_refine
 from calibr8_tpu_torch.problem import Problem
+from calibr8_tpu_torch.solve.amg import AMGPrecondFactory
 from calibr8_tpu_torch.solve.ellpack import (
     LevelEllOperator, ell_device_maps, level_ell_spmv, level_ell_spmv_plain,
 )
@@ -71,10 +75,16 @@ def test_level_wrapper_on_cpu_runs_the_plain_version():
                                      ({"preconditioner": "multigrid"}, {})],
                          ids=["amg_on_a_refined_mesh", "multigrid_without_refinements"])
 def test_aggregation_amg_decks_name_the_missing_module(la, mesh):
-    """calibr8_tpu runs these on its aggregation AMG (solve/amg.py's
-    AMGPrecondFactory), which is not ported yet."""
+    """calibr8_tpu runs these on its aggregation AMG (problem.py:180-199),
+    and so does the port: Problem's factory is an AMGPrecondFactory with
+    calibr8_tpu's level sizes (solve/amg.py).  The name is from when the
+    port raised here, naming the module it lacked."""
     deck = make_deck({"type": "notch2D", "h": 0.25, **mesh}, "small_J2", J2_MAT,
                      BCS_2D(0.001), 1)
     deck["linear algebra"] = {"method": "gmres", **la}
-    with pytest.raises(NotImplementedError, match="solve/amg.py"):
-        Problem(load_deck(copy.deepcopy(deck)), device="cpu")
+    prob = Problem(load_deck(copy.deepcopy(deck)), device="cpu")
+    assert isinstance(prob.mg_factory, AMGPrecondFactory)
+    assert prob.step_solver.mg_factory is prob.mg_factory and prob.mg_setup_s > 0
+    jp = JaxProblem(jax_load_deck(copy.deepcopy(deck)))
+    assert isinstance(jp.mg_factory, JaxAMGPrecondFactory)
+    assert prob.mg_factory.level_sizes == jp.mg_factory.level_sizes
