@@ -114,9 +114,7 @@ def apply_dbcs_residual(R, diag, x, bc_dofs, bc_vals):
 def zero_dbc_rows(R, bc_dofs):
     """The adjoint variant: constrained rows zeroed (dbcs.cpp:102-104);
     returns a copy."""
-    R = R.clone()
-    R[bc_dofs] = 0.0
-    return R
+    return R.clone().index_fill_(0, bc_dofs, 0.0)
 
 
 def apply_dbcs_matvec(Jv, diag, v, bc_dofs):
@@ -128,8 +126,9 @@ def apply_dbcs_matvec(Jv, diag, v, bc_dofs):
 
 def apply_dbcs_dense(A, diag, bc_dofs):
     """Zero the constrained rows of a dense matrix and put the assembled
-    diagonal back on them, in place."""
-    A[bc_dofs, :] = 0.0
+    diagonal back on them, in place (index_fill_ passes the value to the
+    kernel, which a CUDA graph can hold)."""
+    A.index_fill_(0, bc_dofs, 0.0)
     A[bc_dofs, bc_dofs] = diag[bc_dofs]
     return A
 

@@ -198,6 +198,11 @@ _HYBRID_ARGTYPES = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ct
                     ctypes.c_double, ctypes.c_int]
 
 
+# per card: the hybrid network description the wrapper passed last, which
+# the library then holds in constant memory (implicit_hybrid.cu put_net)
+_hybrid_net_last: dict[int, tuple] = {}
+
+
 def hybrid_net_args(bmodel, params_all):
     """The hybrid kernel's network arguments; NotImplementedError above the
     kernel's cap (the plain version has none)."""
@@ -288,6 +293,7 @@ def _launch(spec, bmodel, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h, params_
         net, argtypes = (), _IMPLICIT_ARGTYPES
         if lib == "implicit_hybrid":
             net = hybrid_net_args(bmodel, params_all)
+            _hybrid_net_last[x.device.index] = (*net[:2], tuple(net[2]), *net[3:])
             argtypes = _IMPLICIT_ARGTYPES + _HYBRID_ARGTYPES
         fn = kernels.function(lib, symbol, argtypes)
         err = fn(*implicit_args(spec, bmodel, E, x, x_prev, edofs_T, xi_prev, gN_T, detJ, h,
@@ -463,6 +469,16 @@ class FusedAssembler:
         self.spec = disc.spec
         self.bmodel = get_batched_model(model)
         check_supported(self.bmodel, self.spec)
+
+    def const_state(self):
+        """What this assembly's kernel keeps on the card between launches,
+        outside its arguments: for the hybrid, the network description its
+        wrapper passed last (the library holds it in constant memory, and
+        a CUDA graph that replays the kernel reads it there); None for
+        every other library, and before the first launch."""
+        if IMPLICIT_LIB.get(self.bmodel.name, ("",))[0] != "implicit_hybrid":
+            return None
+        return _hybrid_net_last.get(self.disc.device.index)
 
     def assemble(self, x, xi_prev, params_all, x_prev=None):
         """Returns (R (n_dofs,), J_T (nde, nde, E), diag (n_dofs,),

@@ -19,6 +19,10 @@ which launch the kernels of `ell_spmv.cu` on level or part shapes; and
 which launches the assembly libraries on pre-gathered element columns.
 The assembly libraries' launches are also counted by model, in
 `model_launches`.
+Under a CUDA graph (solve/jit_newton.py) a wrapper called during the
+capture launches nothing: `recording()` takes the counts it made out of
+`launches` and `model_launches` and keeps them, and `replayed()` adds
+them back at each replay of the graph, when the kernels do launch.
 Kernel 1b, the implicit assembly, is four sources: `implicit_assembly.cu`
 (the Hill, hyper_J2 and hypo_hill families), `implicit_eig.cu` (the
 Hosford twins), `implicit_barlat.cu` (hypo_barlat) and
@@ -29,6 +33,7 @@ build in parallel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -74,6 +79,41 @@ def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
     model_launches.clear()
+
+
+class Recorded:
+    """The wrapper counts made while a CUDA graph was captured: what each
+    replay of it launches."""
+
+    def __init__(self):
+        self.launches: dict[str, int] = {}
+        self.model_launches: dict[tuple[str, str], int] = {}
+
+
+@contextlib.contextmanager
+def recording():
+    """Around a CUDA graph's capture: yields a Recorded that holds, on
+    exit, the counts the wrappers added inside, which are taken back out
+    of `launches` and `model_launches` (a capture launches nothing)."""
+    rec = Recorded()
+    before, before_m = dict(launches), dict(model_launches)
+    try:
+        yield rec
+    finally:
+        rec.launches = {k: v - before[k] for k, v in launches.items() if v != before[k]}
+        rec.model_launches = {k: v - before_m.get(k, 0) for k, v in model_launches.items()
+                              if v != before_m.get(k, 0)}
+        launches.update(before)
+        model_launches.clear()
+        model_launches.update(before_m)
+
+
+def replayed(rec: Recorded, times: int = 1) -> None:
+    """Count `times` replays of a graph whose capture recorded `rec`."""
+    for k, v in rec.launches.items():
+        launches[k] += v * times
+    for k, v in rec.model_launches.items():
+        model_launches[k] = model_launches.get(k, 0) + v * times
 
 
 def nvcc_path() -> str:

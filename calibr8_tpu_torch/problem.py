@@ -82,8 +82,6 @@ class Problem:
         if gr_type not in ("mechanics", "mechanics_plane_stress"):
             raise NotImplementedError(f"global residual type {gr_type!r} is not ported yet")
         plane_stress = gr_type == "mechanics_plane_stress"
-        if gr.get("solver") == "jitted":
-            raise NotImplementedError("'solver: jitted' (solve/jit_newton.py) is not ported yet")
         la = spec.linear_algebra
         self.mesh = build_mesh(spec, mesh)
         dim = self.mesh.dim
@@ -136,7 +134,15 @@ class Problem:
             ),
             line_search=_ls_params(gr.get("line search", {})),
         )
-        self.step_solver = StepSolver(self.assembler, newton_cfg)
+        jitted = gr.get("solver") == "jitted"
+        if jitted:
+            # the whole Newton loop without host reads inside a chunk,
+            # replayed from CUDA graphs on the card (solve/jit_newton.py)
+            from calibr8_tpu_torch.solve.jit_newton import JitStepSolver
+
+            self.step_solver = JitStepSolver(self.assembler, newton_cfg)
+        else:
+            self.step_solver = StepSolver(self.assembler, newton_cfg)
 
         # multigrid preconditioning (calibr8_tpu problem.py:180-199):
         # geometric on a refinement chain, otherwise the aggregation AMG
@@ -146,6 +152,11 @@ class Problem:
         self.mg_factory = None
         self.mg_setup_s = 0.0
         if precond in ("multigrid", "amg"):
+            if jitted:
+                raise ValueError(
+                    "global residual 'solver: jitted' does not thread the multigrid "
+                    "preconditioner; use the default host solver for 'preconditioner: "
+                    "multigrid/amg' decks")
             t0 = time.perf_counter()
             if precond == "multigrid" and refine_chain:
                 from calibr8_tpu_torch.solve.mg import MGPrecondFactory

@@ -15,6 +15,13 @@ solve/amg.py), GMRES is preconditioned with
 its cycle instead of block Gauss-Seidel, built from the (transposed)
 element blocks per solve, or from a state built once per Newton step
 (LinearCfg.precond_reuse "step", mg_make_state).
+
+SyncFreeSolve is calibr8_tpu's in-program solve_info for the jitted step
+solver (solve/jit_newton.py): the same restart loop with x, the
+stagnation count, `done` and the Krylov count on the device, the cycle
+GmresCycle (solve/gmres.py), and one host read per chunk of iterations
+and per restart cycle after the first; the dense route is
+torch.linalg.solve_ex, which does not read its `info` back.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 from calibr8_tpu_torch.fem.assembly import dense_matrix, ebe_matvec_T
 from calibr8_tpu_torch.fem.bcs import apply_dbcs_dense, apply_dbcs_matvec
 from calibr8_tpu_torch.solve.ellpack import EllOperator
-from calibr8_tpu_torch.solve.gmres import gmres_cycle, pcg
+from calibr8_tpu_torch.solve.gmres import GmresCycle, gmres_cycle, pcg
 from calibr8_tpu_torch.solve.precond import BlockJacobiGS
 from calibr8_tpu_torch.utils import timers
 
@@ -190,3 +197,92 @@ def _gmres_setup(cfg, J_T, disc, diag, bc_dofs, transpose, mg=None, mg_state=Non
             "AMGPrecondFactory, Problem.mg_factory)"
         )
     return op, M
+
+
+class SyncFreeSolve:
+    """J x = b for the jitted step solver, over fixed device buffers (b,
+    x, and the cycle's), in pieces that a CUDA graph can hold: `setup`
+    (the operator and preconditioner, or the dense solve), `cycle_head`,
+    the cycle's chunks (GmresCycle.run) and `cycle_tail`, each free of
+    host reads.  `run` drives them through a runner (gmres.EagerRunner, or
+    solve/jit_newton.py's GraphRunner), which calls or replays a piece and
+    reads a flag.
+
+    calibr8_tpu's solve_info (solve/linear.py:160-272 there), method
+    dense or gmres: each cycle starts from the true residual with target
+    0.1 atol (0 after a no-progress cycle), a non-improving or non-finite
+    cycle is dropped, and two no-progress cycles in a row or convergence
+    end the solve.  Its cg route is not ported here."""
+
+    def __init__(self, cfg: LinearCfg, disc):
+        n = disc.n_dofs
+        method = cfg.method
+        if method == "auto":
+            method = "dense" if n <= cfg.dense_cutoff else "gmres"
+        if method not in ("dense", "gmres"):
+            raise NotImplementedError(
+                f"the jitted step solver takes linear algebra method dense or gmres, not "
+                f"{method!r}")
+        self.cfg, self.disc, self.method = cfg, disc, method
+        z = dict(dtype=disc.dtype, device=disc.device)
+        self.b = torch.zeros(n, **z)
+        self.x = torch.zeros(n, **z)
+        self.atol = torch.zeros((), **z)
+        self.rn = torch.zeros((), **z)
+        self.stag = torch.zeros((), dtype=torch.int32, device=disc.device)
+        self.ki = torch.zeros((), dtype=torch.int32, device=disc.device)
+        self.done = torch.zeros((), dtype=torch.bool, device=disc.device)
+        self.op = self.M = None
+        if method == "gmres":
+            self.restart = min(cfg.restart, n)
+            self.n_outer = max(1, -(-cfg.max_iters // self.restart)) + cfg.refine_iters
+            self.cycle = GmresCycle(self.restart, n, disc.dtype, disc.device)
+
+    def setup(self, J_T, diag, bc_dofs):
+        """The dense solve of b, or the Krylov operator and block-GS (or
+        Jacobi) preconditioner of J_T and the loop's start."""
+        if self.method == "dense":
+            A = dense_matrix(J_T.permute(2, 0, 1), self.disc.edofs, self.disc.n_dofs)
+            A = apply_dbcs_dense(A, diag, bc_dofs)
+            self.x.copy_(torch.linalg.solve_ex(A, self.b).result)
+            return
+        self.op, self.M = _gmres_setup(self.cfg, J_T, self.disc, diag, bc_dofs, False)
+        self.atol.copy_(self.cfg.tol * torch.linalg.vector_norm(self.b))
+        self.x.zero_()
+        self.stag.zero_()
+        self.ki.zero_()
+        self.done.zero_()
+
+    def _opM(self, v):
+        return self.op(self.M(v))
+
+    def cycle_head(self):
+        r = self.b - self.op(self.x)
+        self.rn.copy_(torch.linalg.vector_norm(r))
+        cyc_atol = torch.where(self.stag > 0, 0.0, 0.1 * self.atol)
+        self.cycle.start(r, cyc_atol, live=~self.done)
+
+    def cycle_tail(self):
+        b, x, rn, live = self.b, self.x, self.rn, ~self.done
+        cand = x + self.M(self.cycle.finish())
+        rn_new = torch.linalg.vector_norm(b - self.op(cand))
+        better = torch.isfinite(rn_new) & (rn_new < rn)
+        self.x.copy_(torch.where(better & live, cand, x))
+        progress = better & (rn_new <= 0.95 * rn)
+        stag = torch.where(progress, 0, self.stag + 1).to(torch.int32)
+        self.ki.copy_(torch.where(live, self.ki + self.cycle.k_used, self.ki))
+        self.stag.copy_(torch.where(live, stag, self.stag))
+        self.done.copy_(self.done | (torch.minimum(rn_new, rn) <= self.atol) | (stag >= 2))
+
+    def run(self, runner):
+        """The restart loop after `setup`: pieces through runner.run(key,
+        fn), flags through runner.read(tensor)."""
+        if self.method == "dense":
+            return
+        for c in range(self.n_outer):
+            runner.run(("cycle_head",), self.cycle_head)
+            self.cycle.run(self._opM, runner)
+            runner.run(("cycle_tail",), self.cycle_tail)
+            if c + 1 < self.n_outer and runner.read(self.done):
+                break
+

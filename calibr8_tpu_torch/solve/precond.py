@@ -46,7 +46,8 @@ class BlockJacobiGS:
         # (consistent with the operator's DBC row treatment)
         D = disc.nodemat(diag)
         bc_mask = torch.zeros(disc.n_dofs, dtype=dtype, device=J_T.device)
-        bc_mask[bc_dofs] = 1.0
+        # index_fill_ passes the value to the kernel (a CUDA graph can hold it)
+        bc_mask.index_fill_(0, bc_dofs, 1.0)
         rowsel = disc.nodemat(bc_mask)[:, :, None]
         eye = torch.eye(disc.ndpn, dtype=dtype, device=J_T.device)
         blocks = blocks * (1.0 - rowsel) + rowsel * eye[None] * D[:, :, None]

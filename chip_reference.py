@@ -14,6 +14,8 @@ full-width decks: the values chip_smoke.py holds the port to.
     python3 chip_reference.py dist_tol [bench] [hyper]
     JAX_PLATFORMS=cpu python3 chip_reference.py femu [DIR]
     JAX_PLATFORMS=cpu python3 chip_reference.py amg DIR [bench] [plane_stress] [bench16]
+    JAX_PLATFORMS=cpu python3 chip_reference.py jitted [DIR]
+    JAX_PLATFORMS=cpu python3 chip_reference.py jitted_host
 
 The first form runs each named deck (the first three by default; the
 eigensolver decks chip_smoke.eig_deck("hypo_barlat", 32) and
@@ -102,7 +104,20 @@ run there on the port's number of power iterations for lmax
 on these decks (relres 0.79 and 0.82 on the first solve) and its Newton
 raises.
 
-The first, second, fourth, sixth, eighth and ninth need JAX and the calibr8_tpu package; chip_smoke.py itself
+The tenth runs calibr8_tpu's bench.py calibration at its default n=10
+(chip_smoke.jit_bench_decks: notch2D h=0.01, small_hill_plane_stress,
+`solver: jitted`): the synthetic primal through its JitStepSolver, whose
+`reaction mismatch` QoI writes load.dat, attach_synthetic, then the
+calibration QoI's AdjointObjective (default LinearCfg) at Y 2.5, D 2.8
+and run_inverse (L-BFGS-B, 60 iterations, gtol 1e-12) over Y and D, and
+prints one JSON line (also DIR/jit_ref.json) with the synthetic J, J and
+the canonical dJ/d(Y, D) at the start, the recovered Y and D and the
+evaluation count: chip_smoke.py's J_REF_JIT, J_REF_JIT_START, G_REF_JIT
+and CAL_REF_JIT (~15 min).  The eleventh runs the same synthetic deck
+without `solver` through calibr8_tpu's host StepSolver and prints its J,
+chip_smoke.py's J_REF_JIT_HOST.
+
+The first, second, fourth, sixth, eighth, ninth, tenth and eleventh need JAX and the calibr8_tpu package; chip_smoke.py itself
 imports neither.  Full-width decks are for a machine with the memory and the
 minutes for them (the primal of one such deck took 400-800 s on an 8-core
 CPU).
@@ -529,6 +544,85 @@ def femu_reference(chip_smoke, out_dir=None) -> None:
     print(line, flush=True)
 
 
+def jitted_reference(chip_smoke, out_dir=None) -> None:
+    import tempfile
+
+    import jax
+    import numpy as np
+
+    from calibr8_tpu.deck import load_deck
+    from calibr8_tpu.io.synthetic import attach_synthetic
+    from calibr8_tpu.opt.drivers import run_inverse
+    from calibr8_tpu.opt.objective import ActiveParams, AdjointObjective
+    from calibr8_tpu.problem import Problem
+    from calibr8_tpu.solve.adjoint import Adjoint
+    from calibr8_tpu.solve.jit_newton import JitStepSolver
+    from calibr8_tpu.solve.linear import LinearCfg
+
+    rec = dict(reference="J_REF_JIT / J_REF_JIT_START / G_REF_JIT / CAL_REF_JIT",
+               jax=jax.__version__, cpus=os.cpu_count())
+    with tempfile.TemporaryDirectory() as tmp:
+        load_file = os.path.join(tmp, "load.dat")
+        syn_deck, cal_deck = chip_smoke.jit_bench_decks(load_file)
+        t0 = time.perf_counter()
+        try:
+            syn = Problem(load_deck(syn_deck))
+            assert isinstance(syn.step_solver, JitStepSolver)
+            traj = syn.solve_primal()
+            rec.update(J_synthetic=float(traj.J), J_steps=[float(v) for v in traj.qoi_values],
+                       synthetic_s=time.perf_counter() - t0)
+            attach_synthetic(syn.mesh, syn.disc, traj)
+            cal = Problem(load_deck(cal_deck), mesh=syn.mesh)
+            rec.update(n_elem=int(cal.disc.n_elem), n_dofs=int(cal.disc.n_dofs))
+            adj = Adjoint(cal.assembler, cal.qoi, cal.dbcs, LinearCfg())
+            active = ActiveParams.from_inverse_spec(chip_smoke.FEMU_FULL_ACTIVE,
+                                                    cal.disc.elem_set_names,
+                                                    cal.model.param_names)
+            obj = AdjointObjective(cal, adj, active)
+            x0 = active.to_canonical(active.extract(cal.params0))
+            t0 = time.perf_counter()
+            rec["J_start"] = float(obj.value(x0))
+            rec["grad_start"] = dict(zip(active.names, (
+                float(v) for v in np.asarray(obj.gradient(x0), dtype=np.float64))))
+            rec["start_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            res = run_inverse(obj, active, x0=x0, max_iters=60, gtol=1e-12)
+            rec.update(recovered={n.split("/")[-1]: float(v) for n, v in zip(res.names,
+                                                                              res.params)},
+                       evaluations=int(res.n_evals), failed=int(getattr(res, "n_failed", 0)),
+                       J_final=float(res.J), message=str(res.message),
+                       calibration_s=time.perf_counter() - t0)
+        except Exception as exc:  # noqa: BLE001 - record the failure in the line
+            rec.update(error=repr(exc), seconds=time.perf_counter() - t0)
+    line = json.dumps(rec)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "jit_ref.json"), "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+
+
+def jitted_host_reference(chip_smoke) -> None:
+    import tempfile
+
+    import jax
+
+    from calibr8_tpu.deck import load_deck
+    from calibr8_tpu.problem import Problem
+    from calibr8_tpu.solve.newton import StepSolver
+
+    with tempfile.TemporaryDirectory() as tmp:
+        syn_deck, _ = chip_smoke.jit_bench_decks(os.path.join(tmp, "load.dat"), solver=None)
+        t0 = time.perf_counter()
+        prob = Problem(load_deck(syn_deck))
+        assert isinstance(prob.step_solver, StepSolver)
+        traj = prob.solve_primal()
+    print(json.dumps(dict(reference="J_REF_JIT_HOST", J=float(traj.J),
+                          J_steps=[float(v) for v in traj.qoi_values],
+                          seconds=time.perf_counter() - t0, jax=jax.__version__,
+                          cpus=os.cpu_count())), flush=True)
+
+
 def main(argv) -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -575,6 +669,10 @@ def main(argv) -> int:
         mg_references(["amg_" + a for a in args[2:] or AMG_DECKS], chip_smoke, args[1])
     elif args[:1] == ["femu"]:
         femu_reference(chip_smoke, args[1] if len(args) > 1 else None)
+    elif args[:1] == ["jitted"]:
+        jitted_reference(chip_smoke, args[1] if len(args) > 1 else None)
+    elif args[:1] == ["jitted_host"]:
+        jitted_host_reference(chip_smoke)
     else:
         primal_references(args or list(DECKS), chip_smoke)
     return 0

@@ -161,8 +161,26 @@ Phases, in order; any failure exits non-zero without the result lines:
     deck converged to 1e-11 against the port's single-device AMG run: x
     and J within 1e-9, then DistAdjoint's dJ/dp (GMRES at 1e-12 in both)
     within 1e-8 of max.
- 7. one JSON line listing every ported kernel (launches: the sum over
-    the runs of phases 4, 4b, 4c, 5b-5f, 5h and 6; the probe's from its own run;
+ 7. the jitted step solver (phase_jitted, solve/jit_newton.py: Newton
+    and GMRES with no host read inside a chunk, replayed from CUDA graphs)
+    on bench.py's calibration decks at n=10 (jit_bench_decks: notch2D
+    h=0.01, small_hill_plane_stress, GMRES(200) + block GS): (a) the
+    synthetic primal through JitStepSolver and the host StepSolver, J of
+    each within 1e-6 of calibr8_tpu's run of the same route (J_REF_JIT,
+    J_REF_JIT_HOST), with per step and
+    route the Newton and Krylov counts, ms per Newton and Krylov
+    iteration, graph replays and host reads (the synchronizing calls
+    counted by PyTorch's sync debug mode); (b) the captured step against
+    the uncaptured make_jit_step (x 1e-12, path equal), and the launches
+    of kernels 1b and 3a equal to the graphs' recorded launches times
+    their replays; (c) bench.py's calibration (L-BFGS-B over Y, D from
+    2.5, 2.8): J and dJ/dp at the start within 1e-6 / 1e-5 of
+    calibr8_tpu's (J_REF_JIT_START, G_REF_JIT), Y and D within 5e-3 of the
+    truth, evaluations, failed forward solves, seconds per evaluation
+    (primal and sweep), peak memory; (d) three experiments (x1, x1.05,
+    x0.95) through run_batch, each equal to its own run to 1e-12.
+ 8. one JSON line listing every ported kernel (launches: the sum over
+    the runs of phases 4, 4b, 4c, 5b-5f, 5h, 6 and 7; the probe's from its own run;
     implicit_assembly's entry also each instance's launches and figures,
     kernels.model_launches), the card's name and power limit, and the
     `ok` line last.
@@ -2317,6 +2335,19 @@ def femu_full_decks(load_file):
     return syn, cal
 
 
+def jit_bench_decks(load_file, solver="jitted"):
+    """bench.py's run_calibration decks at its default n=10, float64:
+    femu_decks on notch2D h=0.01 (22,445 triangles, 22,838 dofs) from Y
+    2.5, D 2.8, the default linear algebra (GMRES(200) + block GS at 1e-6),
+    with `solver: jitted` in both global residuals (solver None: the host
+    StepSolver)."""
+    syn, cal = femu_decks(load_file, {"type": "notch2D", "h": 0.01}, {"Y": 2.5, "D": 2.8})
+    if solver is not None:
+        for d in (syn, cal):
+            d["residuals"]["global residual"]["solver"] = solver
+    return syn, cal
+
+
 class FemuRecorder:
     """An AdjointObjective with each evaluation's record: the primal's and
     the sweep's seconds, each load step's Newton and Krylov iterations, and
@@ -3451,6 +3482,364 @@ def phase_amg(meshes, results):
     return good, add_counts(counts, c), labels
 
 
+# calibr8_tpu's jitted run of bench.py's calibration decks (jit_bench_decks)
+# at n=10, float64, on the 8-core CPU of the machine with the card
+# (chip_reference.py jitted, JAX 0.9.0): the synthetic J (steps
+# 1.535244304100571, 1.7920731328364805; 96 s), J and the canonical
+# dJ/d(Y, D) at the calibration start, and its L-BFGS-B recovery (663 s)
+J_REF_JIT = 3.3273174369370517
+J_REF_JIT_START = 0.9581022153098492
+G_REF_JIT = {"body/Y": 2.380332066912551, "body/D": 1.208792694142203}
+CAL_REF_JIT = {"Y": 1.999999999997733, "D": 1.9999999999853706, "evaluations": 10}
+# the same synthetic deck without `solver`, through calibr8_tpu's host
+# StepSolver (chip_reference.py jitted_host; steps 1.5352449882917176,
+# 1.7920671845182232; 74 s).  It lies 1.6e-6 from J_REF_JIT: the two
+# Newton loops (Armijo cubic line search, fixed-budget halving) stop at
+# the deck's 1e-8 on different iterates, every GMRES solve at its
+# 200-iteration cap in both
+J_REF_JIT_HOST = 3.3273121728099406
+JIT_LIMITS = dict(J=1e-6, J_start=1e-6, grad_start=1e-5, recovered=5e-3, captured=1e-12,
+                  batch=1e-12)
+JIT_BATCH = (1.0, 1.05, 0.95)
+JIT_LABEL = "notch2D h=0.01 small_hill_plane_stress"
+# the __global__ kernel that each counter's wrapper launches, by its name
+# in a torch.profiler trace; no other wrapper of these kernels (1b's other
+# libraries, 3c's level and part applies) may launch in the profiled step
+TRACE_KERNELS = {"implicit_assembly": "implicit_team_kernel", "ell_spmv": "ell_spmv_kernel",
+                 "ell_spmv_T": "ell_spmv_T_kernel", "ebe_matvec": "ebe_matvec_kernel"}
+
+
+def count_syncs(fn):
+    """(fn(), the number of synchronizing CUDA calls it made), counted
+    with PyTorch's sync debug mode (each .item(), float(), .cpu() of a
+    device tensor warns once)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def route_steps(traj) -> list:
+    """Per load step of a primal run: Newton iterations, Krylov iterations
+    per linear solve, seconds, ms per Newton and per Krylov iteration, and
+    (jitted) graph replays and host reads."""
+    out = []
+    for i, info in enumerate(traj.newton_info):
+        newton, kry = info["iterations"] - 1, [int(k) for k in info["krylov_iters"]]
+        s = info["seconds"]
+        out.append(dict(step=i + 1, newton_iterations=newton, krylov_iterations=kry, seconds=s,
+                        ms_per_newton=1e3 * s / max(newton, 1),
+                        ms_per_krylov=1e3 * s / max(sum(kry), 1),
+                        replays=info.get("replays", 0), host_reads=info.get("host_reads")))
+    return out
+
+
+def traced(fn):
+    """fn() under torch.profiler (CUDA activity): (the card's busy ms,
+    profile_primal.py's device_intervals; {kernel: device ms}; {counter:
+    kernel events of its TRACE_KERNELS name}; all kernel events)."""
+    import tempfile
+
+    from calibr8_tpu_torch.profile_primal import device_intervals
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        busy_ms, by_name = device_intervals(path)
+        with open(path) as f:
+            names = [ev["name"] for ev in json.load(f)["traceEvents"]
+                     if ev.get("ph") == "X" and ev.get("cat") == "kernel"]
+    finally:
+        os.remove(path)
+    counts = {c: sum(k in n for n in names) for c, k in TRACE_KERNELS.items()}
+    return busy_ms, by_name, counts, len(names)
+
+
+def profile_step1(prob) -> dict:
+    """Load step 1 of `prob` from its initial state, once plain (wall) and
+    once under torch.profiler: the card's busy time, the idle share 1 -
+    busy / wall, the device time of the eight longest kernels, and the
+    launches of the profiled step counted twice: by the wrappers' counters
+    (for a replayed graph, its capture's counts times its replays) and by
+    the kernel events in the trace.  No counter outside TRACE_KERNELS may
+    launch; `trace_match`: the two counts agree for every TRACE_KERNELS
+    counter; `trace_within`: no trace count exceeds its counter's.  On the
+    H100 a trace can miss some kernels' records, on either route (PERF.md),
+    so a trace count is a lower bound of the launches."""
+    from calibr8_tpu_torch import kernels
+
+    x0, xi0, _ = prob.primal.initial_state()
+    bc_dofs, bc_vals = prob.dbcs.arrays(prob.time_grid.time(1), 1)
+    args = (x0, x0, xi0, prob.params0, bc_dofs, bc_vals, prob.disc.zero_x())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob.step_solver.solve_at_step(*args, step=1)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels.reset_launches()
+    busy_ms, by_name, counts, n_events = traced(
+        lambda: prob.step_solver.solve_at_step(*args, step=1))
+    counted = {k: v for k, v in kernels.launches.items() if v}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    own = set(counted) <= set(TRACE_KERNELS)
+    match = own and all(counted.get(c, 0) == n for c, n in counts.items())
+    within = own and all(n <= counted.get(c, 0) for c, n in counts.items())
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / wall_ms,
+                device_ms_by_kernel=dict(top), launches_counted=counted,
+                launches_traced=counts, kernel_events=n_events, trace_match=match,
+                trace_within=within)
+
+
+def check_captured_head(prob, traj):
+    """The captured head graph of prob's JitStepSolver, replayed at load
+    step 2's start (x and xi of step 1's solution, step 2's BCs), against
+    the plain assembly (fused_assembly_plain, its element residuals and
+    diagonals summed with index_add_) on the same inputs: b = -R with the
+    Dirichlet rows and the diagonal to IMPLICIT_LIMITS' R (of the element
+    residuals' max), the ELL matrix of J_T to its J, xi to its xi, path
+    equal.  Returns (ok, record, the kernel's J_T at that state)."""
+    from calibr8_tpu_torch.fem.bcs import apply_dbcs_residual
+    from calibr8_tpu_torch.fem.fused_assembly import fused_assembly_plain
+    from calibr8_tpu_torch.solve.ellpack import assemble_ell_T
+
+    solver, disc, P = prob.step_solver, prob.disc, prob.params0
+    prog = solver.prog
+    x, xi_prev = traj.x[1], traj.xi[1]
+    bc_dofs, bc_vals = prob.dbcs.arrays(prob.time_grid.time(2), 2)
+    ext = disc.zero_x()
+    prog.load(x, x, xi_prev, P, bc_dofs, bc_vals, ext)
+    replays0 = solver.runner.replays[("head",)]
+    solver.runner.run(("head",), prog.head)
+    R_T, J_T, xi_T, path, fail = fused_assembly_plain(disc, prob.assembler.bmodel, x, xi_prev,
+                                                      P, x_prev=x)
+    idx = disc.edofs.reshape(-1)
+    R = torch.zeros_like(x).index_add_(0, idx, R_T.T.reshape(-1))
+    diag = torch.zeros_like(x).index_add_(0, idx, torch.diagonal(J_T, 0, 0, 1).reshape(-1))
+    b = -apply_dbcs_residual(R - ext, diag, x, bc_dofs, bc_vals)
+    r_max, j_max = float(R_T.abs().max()), float(J_T.abs().max())
+    lim = IMPLICIT_LIMITS["float64"]
+    errs = dict(
+        b=float((prog.lin.b - b).abs().max()) / r_max,
+        diag=float((prog.diag - diag).abs().max()) / j_max,
+        J=rel_err(prog.lin.op.A_T, assemble_ell_T(J_T, disc))[0],
+        xi=rel_err(prog.carry.xi, xi_T.T)[0])
+    path_eq = bool(torch.equal(prog.carry.path, path.to(prog.carry.path.dtype)))
+    ok = (errs["b"] <= lim["R"] and errs["diag"] <= lim["J"] and errs["J"] <= lim["J"]
+          and errs["xi"] <= lim["xi"] and path_eq and int(fail.sum()) == 0
+          and solver.runner.replays[("head",)] == replays0 + 1)
+    rec = dict(rel_err=errs, path_equal=path_eq, plastic=int(path.sum()), elements=disc.n_elem,
+               failed_plain=int(fail.sum()), limits=dict(b=lim["R"], diag=lim["J"], J=lim["J"],
+                                                         xi=lim["xi"]), ok=ok)
+    J_T_k = prob.assembler.assemble(x, xi_prev, P, x_prev=x)[1]
+    return ok, rec, J_T_k
+
+
+def phase_jitted(mesh):
+    """Phase 7, the jitted step solver (solve/jit_newton.py) on bench.py's
+    calibration decks at n=10 (jit_bench_decks: notch2D h=0.01, 22,445
+    triangles, 22,838 dofs, small_hill_plane_stress, GMRES(200) + block
+    GS), float64: (a) the synthetic primal through JitStepSolver and
+    through the host StepSolver, each twice (the first jitted run warms up
+    and captures), J within 1e-6 of calibr8_tpu's run of the same route
+    (J_REF_JIT, J_REF_JIT_HOST; the host route's distance to J_REF_JIT is
+    recorded), each route's synchronizing calls counted in a third run; (b) the
+    captured step against the uncaptured make_jit_step on step 1's inputs
+    (x within 1e-12 of max|x|, path equal), and the launches of (a)'s
+    second jitted run equal to each graph's recorded launches times its
+    replays, implicit_assembly's and ell_spmv's non-zero; (c) bench.py's
+    calibration (L-BFGS-B from Y 2.5, D 2.8, 60 iterations, gtol 1e-12):
+    J and dJ/dp at the start within 1e-6 / 1e-5 of calibr8_tpu's, Y and D
+    within 5e-3 of the truth; (d) three experiments (params x1, x1.05,
+    x0.95) through run_batch, each equal to its own run to 1e-12, the three
+    x[-1] apart; (e) the path's kernels at this deck's shapes: the
+    captured head against the plain assembly (check_captured_head), 1b
+    (check_implicit), 3a, 3b and the EBE (check_operators_at) against
+    their plain versions at the phase-2 limits.  Launches against the
+    trace: load step 1 of each route under torch.profiler
+    (profile_step1), its kernel events of 1b and 3a non-zero and none
+    above its counters.  Recorded, no limit: that step's device busy share on
+    each route, and one host-route evaluation at the calibration start.  Returns (ok, launch
+    counts, {kernel: its (e) record})."""
+    import tempfile
+
+    from calibr8_tpu_torch import kernels
+    from calibr8_tpu_torch.deck import load_deck
+    from calibr8_tpu_torch.io.synthetic import attach_synthetic
+    from calibr8_tpu_torch.opt.drivers import run_inverse
+    from calibr8_tpu_torch.opt.objective import ActiveParams, AdjointObjective
+    from calibr8_tpu_torch.problem import Problem
+    from calibr8_tpu_torch.solve.adjoint import Adjoint
+    from calibr8_tpu_torch.solve.jit_newton import JitStepSolver, JitTrajectory, make_jit_step
+    from calibr8_tpu_torch.solve.linear import LinearCfg
+
+    lim = JIT_LIMITS
+    mesh = copy.copy(mesh)  # fields of its own
+    mesh.fields = {}
+    rec, counts, good = dict(phase="jitted, bench.py run_calibration decks, n=10"), {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        load_file = os.path.join(tmp, "load.dat")
+        syn_deck, cal_deck = jit_bench_decks(load_file)
+        host_deck, _ = jit_bench_decks(load_file, solver=None)
+        routes = {}
+        for route, deck in (("host", host_deck), ("jitted", syn_deck)):
+            prob = Problem(load_deck(copy.deepcopy(deck)), mesh=mesh, device=DEVICE,
+                           dtype=torch.float64)
+            runs = []
+            j_ref = J_REF_JIT if route == "jitted" else J_REF_JIT_HOST
+            for _ in range(2):
+                runner = getattr(prob.step_solver, "runner", None)
+                replays0 = dict(runner.replays) if runner is not None else {}
+                kernels.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                traj = prob.solve_primal()
+                torch.cuda.synchronize()
+                runner = getattr(prob.step_solver, "runner", None)
+                # each graph's replays in this run
+                delta = ({k: v - replays0.get(k, 0) for k, v in runner.replays.items()}
+                         if runner is not None else {})
+                runs.append(dict(seconds=time.perf_counter() - t0, J=traj.J,
+                                 replays={"/".join(map(str, k)): v for k, v in delta.items()},
+                                 J_rel_err=abs(traj.J - j_ref) / abs(j_ref),
+                                 J_rel_err_to_jitted_ref=abs(traj.J - J_REF_JIT) / abs(J_REF_JIT),
+                                 steps=route_steps(traj), launches=launch_counts()))
+            _, syncs = count_syncs(prob.solve_primal)
+            routes[route] = dict(prob=prob, traj=traj)
+            rec[route] = dict(runs=runs, syncs_per_step=syncs / len(traj.newton_info),
+                              n_dofs=prob.disc.n_dofs, n_elem=prob.disc.n_elem)
+            counts = add_counts(counts, runs[-1]["launches"])
+            good &= all(r["J_rel_err"] <= lim["J"] for r in runs)
+        # the card's busy share of load step 1 on each route (profile_primal.py's
+        # measure: the kernel, memcpy and memset intervals of a torch.profiler
+        # trace, against the unprofiled wall of the same step)
+        for route, r in routes.items():
+            rec[route]["step1_profile"] = profile_step1(r["prob"])
+        # the trace against the counters, on each route: 1b and 3a in it,
+        # no count above its counter's (a trace can miss a kernel's record,
+        # never add one); on the jitted route every such kernel is a replay's
+        for route in routes:
+            prof = rec[route]["step1_profile"]
+            good &= (prof["trace_within"] and prof["launches_traced"]["implicit_assembly"] > 0
+                     and prof["launches_traced"]["ell_spmv"] > 0)
+        # (b) the second jitted run launched through replays alone: each
+        # counter equals its graphs' recorded launches times their replays
+        jp = routes["jitted"]["prob"]
+        assert isinstance(jp.step_solver, JitStepSolver)
+        runner = jp.step_solver.runner
+        from_replays = runner.launches_from(delta)
+        c = rec["jitted"]["runs"][-1]["launches"]
+        rec["graphs"] = {"/".join(map(str, k)): dict(launches=r.launches,
+                                                     replays=runner.replays[k])
+                         for k, r in runner.recorded.items()}
+        rec["launches_from_replays"] = from_replays
+        replay_ok = (from_replays.get("implicit_assembly", 0) > 0
+                     and from_replays.get("ell_spmv", 0) > 0
+                     and all(c[k] == from_replays.get(k, 0) for k in kernels.COUNTERS))
+        rec["launches_match"] = replay_ok
+        # (e) the path's kernels against their plain versions at this deck's
+        # shapes: the captured head at load step 2's start against the plain
+        # assembly, 1b on the phase-2 state, 3a and 3b (and the EBE) on the
+        # kernel's Jacobian at that start
+        head_ok, rec["captured_head"], J_T = check_captured_head(jp, routes["jitted"]["traj"])
+        kr = {}
+        k_ok, _ = check_implicit(JIT_LABEL, jp, 0.01, kr)
+        k_ok &= check_operators_at(JIT_LABEL, jp.disc, J_T, jp.dbcs.arrays(1.0, 1)[0], kr)
+        del J_T
+        kernel_checks = {k[0]: v for k, v in kr.items()}
+        rec["kernel_checks"] = {k: v["ok"] for k, v in kernel_checks.items()}
+        good &= head_ok and k_ok
+        # the captured step against the uncaptured one, on step 1's inputs
+        cfg = jp.step_solver.cfg
+        x0, xi0, _ = jp.primal.initial_state()
+        bc_dofs, bc_vals = jp.dbcs.arrays(jp.time_grid.time(1), 1)
+        ext = jp.disc.zero_x()
+        xc, xic, pc, info = jp.step_solver.solve_at_step(x0, x0, xi0, jp.params0, bc_dofs,
+                                                         bc_vals, ext, step=1)
+        step = make_jit_step(jp.assembler, cfg.max_iters, cfg.abs_tol, cfg.rel_tol,
+                             cfg.line_search.max_evals, cfg.linear)
+        xu, xiu, pu, _, failed = step(x0, x0, xi0, jp.params0, bc_dofs, bc_vals, ext)
+        x_err = float((xc - xu).abs().max() / xu.abs().max())
+        xi_err = float((xic - xiu).abs().max() / xiu.abs().max())
+        path_eq = bool(torch.equal(pc, pu))
+        rec["captured_vs_uncaptured"] = dict(x_rel_err=x_err, xi_rel_err=xi_err,
+                                            path_equal=path_eq, captured_step=info,
+                                            uncaptured_failed=failed)
+        good &= x_err <= lim["captured"] and path_eq and not failed and replay_ok
+        attach_synthetic(mesh, routes["jitted"]["prob"].disc, routes["jitted"]["traj"])
+        # (d) three experiments through run_batch
+        run = JitTrajectory(jp.assembler, jp.time_grid, jp.dbcs, cfg.max_iters, cfg.abs_tol,
+                            cfg.rel_tol, cfg.line_search.max_evals, cfg.linear)
+        batch = torch.stack([f * jp.params0 for f in JIT_BATCH])
+        t0 = time.perf_counter()
+        xs_b = run.run_batch(batch)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t0
+        errs = []
+        for i, p in enumerate(batch):
+            xs = run(p)[0]
+            errs.append(float((xs_b[0][i] - xs).abs().max() / xs.abs().max()))
+        apart = [float((xs_b[0][i, -1] - xs_b[0][0, -1]).abs().max()) for i in (1, 2)]
+        fails = bool(xs_b[4].any())
+        rec["batch"] = dict(factors=JIT_BATCH, rel_err_to_own_run=errs, x_apart=apart,
+                            failed=fails, seconds=batch_s,
+                            replays=sum(run.runner.replays.values()))
+        good &= max(errs) <= lim["batch"] and min(apart) > 0 and not fails
+        # (c) the calibration
+        cal = Problem(load_deck(cal_deck), mesh=mesh, device=DEVICE, dtype=torch.float64)
+        adj = Adjoint(cal.assembler, cal.qoi, cal.dbcs, LinearCfg())
+        active = ActiveParams.from_inverse_spec(FEMU_FULL_ACTIVE, cal.disc.elem_set_names,
+                                                cal.model.param_names)
+        obj = FemuRecorder(AdjointObjective(cal, adj, active), adj)
+        x0c = active.to_canonical(active.extract(cal.params0))
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        J0, g0 = obj.value_and_gradient(x0c)
+        res = run_inverse(obj, active, x0=x0c, max_iters=60, gtol=1e-12)
+        torch.cuda.synchronize()
+        cal_s = time.perf_counter() - t0
+        c = launch_counts()
+        counts = add_counts(counts, c)
+        # one evaluation at the start on the host route, for its seconds
+        _, host_cal = jit_bench_decks(load_file, solver=None)
+        cal_h = Problem(load_deck(host_cal), mesh=mesh, device=DEVICE, dtype=torch.float64)
+        adj_h = Adjoint(cal_h.assembler, cal_h.qoi, cal_h.dbcs, LinearCfg())
+        obj_h = FemuRecorder(AdjointObjective(cal_h, adj_h, ActiveParams.from_inverse_spec(
+            FEMU_FULL_ACTIVE, cal_h.disc.elem_set_names, cal_h.model.param_names)), adj_h)
+        obj_h.value_and_gradient(x0c)
+    rec_params = femu_recovered(res)
+    summ = obj.summary()
+    gref = np.asarray([G_REF_JIT[k] for k in res.names])
+    j_rel = abs(J0 - J_REF_JIT_START) / abs(J_REF_JIT_START)
+    g_rel = float(np.abs(np.asarray(g0) - gref).max() / np.abs(gref).max())
+    rec["calibration"] = dict(
+        names=res.names, recovered={k: v[0] for k, v in rec_params.items()},
+        rel_err={k: v[1] for k, v in rec_params.items()}, reference=CAL_REF_JIT, J0=J0,
+        J0_rel_err=j_rel, grad0=[float(v) for v in g0], grad0_rel_err=g_rel, J=res.J,
+        message=res.message, failed_forward_solves=res.n_failed, calibration_s=cal_s,
+        seconds_per_evaluation=cal_s / max(summ["evaluations"], 1), **summ,
+        launches=c, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        host_route_evaluation=obj_h.evals[0])
+    good &= (j_rel <= lim["J_start"] and g_rel <= lim["grad_start"]
+             and all(v[1] < lim["recovered"] for v in rec_params.values()))
+    rec["limits"], rec["ok"] = lim, good
+    log(json.dumps(rec))
+    log(json.dumps(dict(jitted_calibration_evals=obj.evals)))
+    if not good:
+        log("FAIL jitted: see the record above")
+    return good, counts, kernel_checks
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
@@ -3595,6 +3984,11 @@ def main(argv) -> int:
     if not ok:
         return 1
     counts = add_counts(counts, c)
+    ok, c, jit_checks = phase_jitted(generators.notch2d(0.01))
+    log(f"phase jitted: {'ok' if ok else 'FAILED'} ({time.perf_counter() - t_start:.0f} s)")
+    if not ok:
+        return 1
+    counts = add_counts(counts, c)
 
     line = []
     timed = {"fused_assembly": ("fused_assembly", "float64"),
@@ -3649,6 +4043,9 @@ def main(argv) -> int:
             # the aggregation AMG's levels, the (6, 6) instance among them
             for case in amg_levels:
                 entry[case] = figures(results[("ell_spmv_level", case, "float64")]["forward"])
+        if name in jit_checks:
+            # the jitted phase's check at the bench calibration deck's shapes
+            entry[JIT_LABEL] = figures(jit_checks[name])
         if name == "ell_spmv_part":
             # ndpn 3 and 2 beside the 3D mixed (4, 4) instance's
             for case in ("notch2D h=0.004 small_J2", "notch2D h=0.004 small_hill_plane_stress"):

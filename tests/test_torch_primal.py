@@ -157,7 +157,15 @@ def test_decks_outside_the_slice_fail_loudly(key):
     the fused assembly.  The multigrid, amg and refinements decks are
     calibr8_tpu's aggregation AMG's (problem.py:180-199): they raised
     until the port had it (solve/amg.py) and keep their ids; they now
-    build its AMGPrecondFactory."""
+    build its AMGPrecondFactory.  The jitted deck likewise now builds the
+    jitted step solver (solve/jit_newton.py)."""
+    if key == "jitted":
+        from calibr8_tpu_torch.solve.jit_newton import JitStepSolver
+
+        prob = Problem(load_deck(_unsupported(key)), device="cpu")
+        assert isinstance(prob.step_solver, JitStepSolver)
+        assert prob.primal.step_solver is prob.step_solver
+        return
     if key in ("multigrid", "amg", "refinements"):
         prob = Problem(load_deck(_unsupported(key)), device="cpu")
         assert isinstance(prob.mg_factory, AMGPrecondFactory)
